@@ -1,0 +1,60 @@
+"""Carry state across the two packages.
+
+The NMPC cycle has no learned weights; its state is what a user hands it:
+the carry (`MpcCarry`), the reference (`RefTraj`), obstacle fields,
+footholds, contacts and QP operands. `from_numpy` turns any tree of arrays
+(numpy, or anything `np.asarray` accepts, such as the JAX package's arrays)
+into tensors, and the JAX package's NamedTuples into the port's of the same
+name; `to_numpy` is the way back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from srbx_torch import mpc, ocp, refplan
+
+_PORT_TYPES = {
+    cls.__name__: cls
+    for cls in (mpc.MpcCarry, mpc.MpcOutput, refplan.RefTraj, ocp.OcpData)
+}
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def from_numpy(tree, device=None, dtype=torch.float64):
+    """Tree of arrays -> tree of tensors on `device`. Floating leaves take
+    `dtype`; integer and boolean leaves keep their own type."""
+    if tree is None:
+        return None
+    if _is_namedtuple(tree):
+        cls = _PORT_TYPES.get(type(tree).__name__, type(tree))
+        return cls(*(from_numpy(v, device, dtype) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_numpy(v, device, dtype) for v in tree)
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device) if device is not None else t
+
+
+def to_numpy(tree):
+    """Tree of tensors -> tree of numpy arrays (the port's NamedTuples
+    are kept)."""
+    if tree is None:
+        return None
+    if _is_namedtuple(tree):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)

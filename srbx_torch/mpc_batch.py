@@ -1,0 +1,205 @@
+"""Batched CBF-NMPC control cycle: the lanes-last fused path.
+
+Counterpart of `srbx/mpc_batch.py::run_nmpc_batch` on its production
+branch (condensed QP, simplex elimination, SQP, fused IPM). One call runs one
+control cycle for every lane:
+
+1. slice the reference window and pick footholds;
+2. build the condensed QP directly lanes-last. The full-space P is diagonal
+   and the full-space G, h are the same for every lane, so only diag(P), c
+   and the expansion E, e0 are built per lane (`ocp.cost`, `ocp.expansion`);
+3. solve it cold with the fused IPM (`ops.qp_fused.solve_lanes_last`);
+4. run `cfg.sqp_iters` SCP rounds: velocity and linearised CBF rows are
+   projected onto the condensed space and the QP is re-solved warm;
+5. fall back to holding position in any lane that went non-finite;
+6. unpack the knots and fit the per-domain Bezier.
+
+The lanes-last products are written as einsum/matmul: as broadcast
+multiply-and-sum, eager PyTorch would materialise multi-GB temporaries at
+the main path's batch (B = 131072).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import NamedTuple
+
+import torch
+
+from srbx_torch import mpc, sqp
+from srbx_torch.config import MpcConfig, QpConfig
+from srbx_torch.ocp import (
+    contract,
+    cost,
+    default_footholds,
+    expand,
+    expansion,
+    inequalities,
+    reference_window,
+    unpack,
+)
+from srbx_torch.ops import qp_fused
+from srbx_torch.ops.bezier import fit_domain_bezier
+
+_log = logging.getLogger(__name__)
+
+
+class LanesLastQp(NamedTuple):
+    """The condensed QP of one cycle, with its expansion x = e0 + E v."""
+
+    e: torch.Tensor     # (B, n_full, n_cond)
+    e0: torch.Tensor    # (B, n_full)
+    P: torch.Tensor     # (n_cond, n_cond, B)
+    c: torch.Tensor     # (n_cond, B)
+    G: torch.Tensor     # (mi, n_cond, B)
+    h: torch.Tensor     # (mi, B)
+
+
+def _full_precision_products():
+    # Full-f32 matrix products on the card. The JAX package measured
+    # reduced-precision products stalling the IPM at 82% of lanes converged
+    # against 100% (srbx/ops/qp_batch.py); TF32 would do the same here.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def effective_contacts(carry: mpc.MpcCarry, contact_ind):
+    """All legs in stance before locomotion starts (gait_domain <= 1)."""
+    return torch.where((carry.gait_domain <= 1)[:, None],
+                       torch.ones_like(contact_ind), contact_ind)
+
+
+def condensed_qp(cfg: MpcConfig, carry: mpc.MpcCarry, q_xy, dq_xy, toe_xy,
+                 ci_eff, pr_agent, prd_agent, agent_initial) -> LanesLastQp:
+    """Build the condensed, simplex-eliminated QP lanes-last."""
+    dtype, device = q_xy.dtype, q_xy.device
+    x0 = torch.stack([q_xy[:, 0], dq_xy[:, 0], q_xy[:, 1], dq_xy[:, 1]], 1)
+    ref = reference_window(pr_agent, prd_agent, 0, carry.gait_domain,
+                           cfg.horizon)
+    nominal = default_footholds(agent_initial.to(dtype))
+    foot = torch.where((carry.gait_domain <= 1)[:, None, None], nominal,
+                       toe_xy)
+    d, c = cost(cfg, ref.to(dtype), ci_eff)        # diag(P), c
+    e, e0 = expansion(cfg, x0, foot, ci_eff, dtype=dtype)
+    g_full, h_full = inequalities(cfg, dtype, device)
+
+    p_ll = torch.einsum("bnk,bnl->klb", e * d[:, :, None], e)
+    p_ll = 0.5 * (p_ll + p_ll.transpose(0, 1))
+    c_ll = torch.einsum("bnk,bn->kb", e, c + d * e0)
+    g_ll = torch.einsum("mn,bnk->mkb", g_full, e)
+    h_ll = h_full[:, None] - torch.einsum("mn,bn->mb", g_full, e0)
+    return LanesLastQp(e, e0, p_ll.contiguous(), c_ll.contiguous(),
+                       g_ll.contiguous(), h_ll.contiguous())
+
+
+def project_rows(qp: LanesLastQp, rows, rhs):
+    """Append full-space rows (B, r, n_full) . x <= rhs (B, r), projected
+    onto the condensed space, to the QP's inequality block."""
+    g_new = torch.einsum("brn,bnk->rkb", rows, qp.e)
+    h_new = rhs.T - torch.einsum("brn,bn->rb", rows, qp.e0)
+    return (torch.cat([qp.G, g_new], 0).contiguous(),
+            torch.cat([qp.h, h_new], 0).contiguous())
+
+
+def expand_ll(qp: LanesLastQp, x_ll):
+    """Full-space decision vectors (B, n_full) from condensed (n_cond, B)."""
+    return expand(qp.e, qp.e0, x_ll.T)
+
+
+def _contract_ll(cfg: MpcConfig, x, ci_eff):
+    return contract(cfg, x, ci_eff).T.contiguous()
+
+
+def run_nmpc_batch(
+    cfg: MpcConfig,
+    qp_cfg: QpConfig,
+    carry: mpc.MpcCarry,          # (B,) int32, (B, 4)
+    q_xy,                         # (B, 2)
+    dq_xy,                        # (B, 2)
+    toe_xy,                       # (B, 2, 4)
+    contact_ind,                  # (B, 4)
+    pr_agent,                     # (B, 2, T)
+    prd_agent,                    # (B, 2, T)
+    agent_initial,                # (B, 2)
+    pobs_real,                    # (B, 2, n_obs)
+    backend: str = "fused",
+    condensed: bool | None = None,
+    state_other=None,             # optional (B, 4) neighbour (x, y, dx, dy)
+    agent_circle_eps: float = 0.0,
+    x0_warm=None,                 # optional (B, num_dec) first-QP warm start
+) -> mpc.MpcOutput:
+    """One NMPC cycle for every lane; the JAX signature without the
+    TPU-only `tile` and `interpret`.
+
+    Only the lanes-last fused branch is ported: condensed=True,
+    backend="fused", cfg.elide_simplex and cfg.use_sqp. Anything else raises
+    NotImplementedError. qp_iters is the first QP's iteration count (max
+    over lanes), as in the JAX package.
+    """
+    if condensed is None:
+        condensed = cfg.condensed
+    if not (condensed and backend == "fused" and cfg.elide_simplex
+            and cfg.use_sqp):
+        raise NotImplementedError(
+            "srbx_torch ports only the lanes-last fused branch of "
+            "run_nmpc_batch (condensed=True, backend='fused', "
+            "cfg.elide_simplex=True, cfg.use_sqp=True); got "
+            f"condensed={condensed}, backend={backend!r}, "
+            f"elide_simplex={cfg.elide_simplex}, use_sqp={cfg.use_sqp}. "
+            "The generic and uncondensed branches and the eager batched IPM "
+            "are ROADMAP M1/M4.")
+    if qp_cfg.ruiz_iters:
+        # Mirrors the JAX package, whose lanes-last gate ignores ruiz_iters
+        # (reference fault F2 in ROADMAP.md): no equilibration is applied.
+        _log.warning("ruiz_iters=%d is ignored on the lanes-last fused path "
+                     "(reference fault F2)", qp_cfg.ruiz_iters)
+    _full_precision_products()
+    dtype, device = q_xy.dtype, q_xy.device
+    bsz = q_xy.shape[0]
+
+    ci_eff = effective_contacts(carry, contact_ind)
+    qp = condensed_qp(cfg, carry, q_xy, dq_xy, toe_xy, ci_eff, pr_agent,
+                      prd_agent, agent_initial)
+    x0_ll = None if x0_warm is None else _contract_ll(cfg, x0_warm, ci_eff)
+    x_ll, _, _, stat1 = qp_fused.solve_lanes_last(
+        qp.P, qp.c, qp.G, qp.h, qp_cfg, x0=x0_ll)
+    qp_converged = stat1[2] > 0.5
+    qp_iters = stat1[3].max().to(torch.int32)
+    x = expand_ll(qp, x_ll)
+
+    obs_xy = mpc.closest_obstacle(q_xy, pobs_real.to(dtype))[0]
+    if state_other is None:
+        circles = obs_xy[:, None, :]                       # (B, 1, 2)
+        mask = torch.ones(bsz, 1, dtype=dtype, device=device)
+    else:
+        # the neighbour's broadcast position is a second CBF circle
+        circles = torch.stack([obs_xy, state_other[:, :2].to(dtype)], 1)
+        mask = torch.tensor([1.0, 1.0 if agent_circle_eps > 0 else 0.0],
+                            dtype=dtype, device=device).expand(bsz, 2)
+
+    vel_g, vel_h = sqp._vel_rows(cfg, dtype, device)
+    for _ in range(cfg.sqp_iters):
+        cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles, mask, dtype)
+        g_s, h_s = project_rows(
+            qp,
+            torch.cat([vel_g.expand(bsz, -1, -1), cbf_g], 1),
+            torch.cat([vel_h.expand(bsz, -1), cbf_h], 1),
+        )
+        x_ll2, _, _, _ = qp_fused.solve_lanes_last(
+            qp.P, qp.c, g_s, h_s, qp_cfg, x0=_contract_ll(cfg, x, ci_eff))
+        x_new = expand_ll(qp, x_ll2)
+        x = torch.where(torch.isfinite(x_new).all(-1, keepdim=True), x_new, x)
+
+    # per-lane hold-position fallback, with the stance mask the QP used
+    x0s = torch.stack([q_xy[:, 0], dq_xy[:, 0], q_xy[:, 1], dq_xy[:, 1]], 1)
+    holds = mpc.hold_position_x(cfg, x0s, ci_eff)
+    x = torch.where(torch.isfinite(x).all(-1, keepdim=True), x, holds)
+
+    states, inputs, _, _ = unpack(cfg, x)
+    knots = torch.cat([carry.alpha_buffer[:, :, None],
+                       states.transpose(1, 2)], 2)
+    alpha_com = fit_domain_bezier(knots)
+    new_carry = mpc.MpcCarry(carry.gait_domain + 1, states[:, -1])
+    margin = sqp.cbf_margins(cfg, x, circles).amin((1, 2))
+    return mpc.MpcOutput(alpha_com, states, inputs, new_carry, qp_converged,
+                         qp_iters, margin, x)

@@ -1,0 +1,117 @@
+"""Build and load the CUDA kernels of srbx_torch.
+
+The sources under `srbx_torch/csrc/` are compiled at first use with `nvcc`
+into one shared library with a plain C interface, which is loaded with
+`ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o srbx_torch/build/libsrbx_torch_<hash>.so csrc/*.cu
+
+The file name carries a hash of the sources and flags, so an edit rebuilds.
+`torch.utils.cpp_extension.load` is not used: a source that includes
+PyTorch's headers takes minutes to compile, a plain C interface seconds.
+There is no CPU fallback here: without `nvcc` the build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+# No --use_fast_math: the kernels keep IEEE division and square root.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_QP_FUSED_ARGTYPES = (
+    [_P] * 9                                   # P c G h x0 | x z s stat
+    + [ctypes.c_longlong, ctypes.c_int]        # B, mi
+    + [ctypes.c_double] * 6                    # abstol reltol reg_primal
+    #                                            reg_dual sigma_min step_frac
+    + [ctypes.c_int] * 3                       # max_iters refine has_x0
+    + [_P]                                     # stream
+)
+ENTRY_POINTS = {
+    "srbx_qp_fused_noeq_f32": _QP_FUSED_ARGTYPES,
+    "srbx_qp_fused_noeq_f64": _QP_FUSED_ARGTYPES,
+}
+
+
+def find_nvcc() -> str:
+    """Path of `nvcc`: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    candidates = [
+        Path(home) / "bin" / "nvcc"
+        for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"))
+        if home
+    ]
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path(DEFAULT_CUDA_HOME) / "bin" / "nvcc")
+    for cand in candidates:
+        if cand.is_file():
+            return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $CUDA_PATH/bin, PATH and "
+        f"{DEFAULT_CUDA_HOME}/bin): srbx_torch's CUDA kernels are compiled "
+        "with nvcc from the CUDA toolkit at first use, and there is no "
+        "fallback for CUDA tensors."
+    )
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libsrbx_torch_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/ into the build directory unless this version exists."""
+    lib = library_path()
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())],
+        capture_output=True, text=True, check=False,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    # -Xptxas -v reports registers, stack and spills per kernel
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's signature."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

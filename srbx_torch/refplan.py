@@ -1,0 +1,185 @@
+"""Artificial-potential-field multi-agent reference planner.
+
+Counterpart of `srbx/refplan.py`: a damped double-integrator rollout of
+`loop_size` steps under goal attraction, obstacle repulsion and
+Lennard-Jones inter-agent forces, downsampled into the per-grid reference
+knots (Pr, Prd) that the NMPC cycle slices its window from. The rollout is a
+Python loop of small tensor operations; it runs once, before any control
+cycle.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from srbx_torch.config import RefPlanConfig
+
+
+class RefTraj(NamedTuple):
+    pr: torch.Tensor    # (2*n_agents, T) downsampled positions
+    prd: torch.Tensor   # (2*n_agents, T) downsampled velocities
+
+
+@functools.lru_cache(maxsize=None)
+def discretize(c: float, m: float, ts: float):
+    """Exact ZOH of the damped double integrator, per axis:
+    Ad = [[1, (1-e)/a], [0, e]], Bd = [[(a ts - 1 + e)/(a^2 m)], [(1-e)/(a m)]]
+    with a = c/m, e = exp(-a ts)."""
+    a = c / m
+    e = np.exp(-a * ts)
+    ad = np.array([[1.0, (1.0 - e) / a], [0.0, e]])
+    bd = np.array([[(a * ts - 1.0 + e) / (a * a * m)], [(1.0 - e) / (a * m)]])
+    return ad, bd
+
+
+def _ipow(x, k: int):
+    """x**k by repeated squaring, in the multiplication order of
+    `jax.lax.integer_pow`, so both packages round alike."""
+    acc = None
+    while k > 0:
+        if k & 1:
+            acc = x if acc is None else acc * x
+        k >>= 1
+        if k > 0:
+            x = x * x
+    return acc
+
+
+def _norm(v):
+    return torch.sqrt((v * v).sum(-1))
+
+
+def _forces(cfg: RefPlanConfig, pos, pobs):
+    """APF force per agent. pos: (n_agents, 2); pobs: (n_obs, 2).
+
+    Goal attraction, obstacle repulsion inside dmin, Lennard-Jones 6-12
+    inter-agent interaction, and zero force within 1 mm of the goal.
+    """
+    goal = torch.tensor(cfg.goal, dtype=pos.dtype, device=pos.device)
+    to_goal = pos - goal
+    d_goal = _norm(to_goal)[:, None]
+    f_att = -cfg.alpha * to_goal / d_goal.clamp(min=1e-12)
+
+    diff = pos[:, None, :] - pobs[None, :, :]          # (n_agents, n_obs, 2)
+    d = _norm(diff)
+    d_safe = d.clamp(min=1e-9)
+    rep_mag = torch.where(
+        d < cfg.dmin,
+        cfg.eta * (1.0 / d_safe - 1.0 / cfg.dmin) / _ipow(d_safe, 2),
+        0.0,
+    )
+    f_rep = (rep_mag[..., None] * diff / d_safe[..., None]).sum(1)
+
+    # Self-pairs are masked out, but their distance is set to a benign value
+    # BEFORE the 7th and 13th powers: at the tiny guard d^13 underflows f32
+    # to 0, and the inf that follows would turn into NaN under the 0-mask.
+    adiff = pos[:, None, :] - pos[None, :, :]
+    ad = _norm(adiff)
+    not_self = 1.0 - torch.eye(pos.shape[0], dtype=pos.dtype,
+                               device=pos.device)
+    ad_safe = torch.where(not_self > 0, ad, 1.0).clamp(min=1e-4)
+    eps, sig = cfg.lj_epsilon, cfg.lj_sigma
+    lj_mag = -4.0 * eps * (
+        6.0 * sig**6 / _ipow(ad_safe, 7) - 12.0 * sig**12 / _ipow(ad_safe, 13)
+    )
+    f_agent = ((lj_mag * not_self)[..., None] * adiff
+               / ad_safe[..., None]).sum(1)
+
+    f = f_att + f_rep + f_agent
+    return torch.where(d_goal < 0.001, 0.0, f)
+
+
+def resolve_matrices(cfg: RefPlanConfig, dtype=torch.float64, device=None):
+    """Per-axis discrete (Ad, Bd): the literal reference matrices when
+    cfg.ad_ref is set, else the exact ZOH closed form."""
+    if cfg.ad_ref:
+        ad = np.array([[1.0, cfg.ad_ref[0]], [0.0, cfg.ad_ref[1]]])
+        bd = np.array([[cfg.bd_ref[0]], [cfg.bd_ref[1]]])
+    else:
+        ad, bd = discretize(cfg.damping_c, cfg.mass_m, cfg.ts)
+    return (torch.as_tensor(ad, dtype=dtype, device=device),
+            torch.as_tensor(bd, dtype=dtype, device=device))
+
+
+def _make_step(cfg: RefPlanConfig, ad, bd, pobs_t, dtype):
+    """One APF rollout step: forces, ramp-up, damped double integrator."""
+
+    def step(pos, vel, i: int):
+        f = _forces(cfg, pos, pobs_t)
+        if cfg.ramp_up_iters > 0:
+            scale = torch.tensor(float(i), dtype=dtype) / cfg.ramp_up_iters
+            f = f * scale.clamp(max=1.0).to(f.device)
+        pos_n = ad[0, 0] * pos + ad[0, 1] * vel + bd[0, 0] * f
+        vel_n = ad[1, 1] * vel + bd[1, 0] * f
+        return pos_n, vel_n
+
+    return step
+
+
+def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
+             device=None) -> RefTraj:
+    """Roll the APF planner and downsample.
+
+    p_start: (2*n_agents,) starting xy per agent; pobs: (2, n_obs).
+    Returns RefTraj with T = loop_size // downsample knots (the reference's
+    2-knot lead-in is reproduced by shifting and edge-padding the tail).
+    """
+    device = device if device is not None else p_start.device
+    na = cfg.n_agents
+    ad, bd = resolve_matrices(cfg, dtype, device)
+    pobs_t = pobs.T.to(dtype=dtype, device=device)
+    pos = p_start.reshape(na, 2).to(dtype=dtype, device=device)
+    vel = torch.zeros_like(pos)
+
+    step = _make_step(cfg, ad, bd, pobs_t, dtype)
+    pos_hist, vel_hist = [], []
+    for i in range(cfg.loop_size):
+        if i % cfg.downsample == 0:        # the pre-step state, every ds-th
+            pos_hist.append(pos)
+            vel_hist.append(vel)
+        pos, vel = step(pos, vel, i)
+    ds = torch.stack(pos_hist)                          # (T, na, 2)
+    dsv = torch.stack(vel_hist)
+    ds = torch.cat([ds[2:], ds[-1:], ds[-1:]], 0)
+    dsv = torch.cat([dsv[2:], dsv[-1:], dsv[-1:]], 0)
+    pr = ds.permute(1, 2, 0).reshape(2 * na, -1)
+    prd = dsv.permute(1, 2, 0).reshape(2 * na, -1)
+    return RefTraj(pr, prd)
+
+
+def two_agent_config(reference_matrices: bool = False, **kw) -> RefPlanConfig:
+    """2-agent planner constants; reference_matrices=True uses the literal
+    hard-coded Ad/Bd instead of exact ZOH."""
+    base = dict(
+        n_agents=2, alpha=100.0, eta=200.0, dmin=2.0, lj_epsilon=1.0,
+        lj_sigma=0.75, ramp_up_iters=0, damping_c=600.0, mass_m=8.0,
+        ts=0.0010630627843875393,
+    )
+    if reference_matrices:
+        base.update(
+            ad_ref=(0.001021788129226, 0.923365890308039),
+            bd_ref=(0.000000067853117956, 0.000127723516153268),
+        )
+    base.update(kw)
+    return RefPlanConfig(**base)
+
+
+def four_agent_config(reference_matrices: bool = False, **kw) -> RefPlanConfig:
+    """4-agent planner constants (with a 1000-step force ramp-up);
+    reference_matrices=True uses the literal hard-coded Ad/Bd."""
+    base = dict(
+        n_agents=4, alpha=150.0, eta=400.0, dmin=1.0, lj_epsilon=60.0,
+        lj_sigma=1.0, ramp_up_iters=1000, damping_c=550.0, mass_m=8.0,
+        ts=0.0010629728231878717,
+    )
+    if reference_matrices:
+        base.update(
+            ad_ref=(0.001025061239872, 0.929527039758809),
+            bd_ref=(0.000000068070472960, 0.000128132654983983),
+        )
+    base.update(kw)
+    return RefPlanConfig(**base)
