@@ -1,20 +1,23 @@
-"""srbx_torch: the PyTorch / CUDA port of srbx's batched CBF-NMPC cycle.
+"""srbx_torch: the PyTorch / CUDA port of srbx's batched CBF-NMPC cycle and
+whole-body closed loop.
 
 The JAX package `srbx` stays as the reference; this package mirrors its
-module names and shares its configuration dataclasses (`srbx.config`, which
-imports no jax, re-exported as `srbx_torch.config`). It imports `torch` and
-never `jax`.
+module names and keeps its own copy of the configuration dataclasses. It
+imports `torch`, never `jax`, and nothing of `srbx`.
 
-  srbx_torch.config       the configuration dataclasses (from srbx.config)
-  srbx_torch.models.lip   LIP discretization constants
-  srbx_torch.refplan      APF multi-agent reference planner
-  srbx_torch.ocp          lane-batched QP assembly and condensed expansion
-  srbx_torch.sqp          velocity and linearised CBF rows
-  srbx_torch.mpc          carry / output types, per-lane helpers
-  srbx_torch.mpc_batch    run_nmpc_batch: the lanes-last fused cycle
-  srbx_torch.ops          fused IPM (CUDA kernel + plain version), Bezier
-  srbx_torch.convert      state conversion to and from numpy / the JAX types
+  srbx_torch.config          the configuration dataclasses
+  srbx_torch.models          LIP constants, rigid-body dynamics, the A1 model
+  srbx_torch.refplan         APF multi-agent reference planner
+  srbx_torch.ocp, .sqp       lane-batched NMPC QP assembly and SCP rows
+  srbx_torch.mpc, .mpc_batch run_nmpc_batch: the lanes-last fused cycle
+  srbx_torch.motion, .agent  gait planning and the 1 kHz control tick
+  srbx_torch.lowlevel        virtual constraints and the LL QP
+  srbx_torch.estimation      the contact debouncer
+  srbx_torch.sim             batched physics and the closed loop (run_batch)
+  srbx_torch.ops             CUDA kernels K1a, K1b, K2a, K2b with their plain
+                             PyTorch versions; Bezier curves
+  srbx_torch.convert         state conversion to and from numpy / JAX types
 
-Every function takes tensors with a leading lane axis and an explicit dtype
-and device; there is no global default device.
+Every function takes tensors with a leading lane axis; entry points that
+create tensors take a `device`, where None means the CUDA card.
 """

@@ -1,0 +1,195 @@
+"""Per-agent 1 kHz control tick, batched over lanes.
+
+Counterpart of `srbx/agent.py` for the gaits of the whole-body loop (STAND
+and TROT): each tick updates the phase, detects a domain change (the phase
+overrun or a forced replan; the contact trigger too unless it is switched
+off), evaluates the MPC's COM Bezier with the stale-solution fallback, runs
+the motion planner and the virtual constraints, and assembles the LL QP.
+`tick_build` stops before the solve and `tick_finish` completes the tick
+from its solution, so that the caller solves every lane's QP in one batched
+call. Every field of AgentState carries a leading lane axis. Other gaits and
+the reduced LL build raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from srbx_torch import lowlevel, motion
+from srbx_torch.config import Gait, LowLevelConfig, MotionConfig
+from srbx_torch.estimation import contact
+from srbx_torch.models import a1, rbd
+from srbx_torch.ops import bezier as bz
+
+
+class AgentState(NamedTuple):
+    loco_tick: torch.Tensor      # (B,) float
+    gait_domain: torch.Tensor    # (B,) int32
+    planner: motion.PlannerState
+    con: contact.ConState
+    mpc_alpha: torch.Tensor      # (B, 4, 5) COM Bezier control points
+    mpc_states: torch.Tensor     # (B, 4, 4) MPC solution knots
+    mpc_available: torch.Tensor  # (B,) bool
+    prev_ddq: torch.Tensor       # (B, 18)
+
+
+def init(motion_cfg: MotionConfig, model: rbd.Model, q0,
+         dtype=torch.float64) -> AgentState:
+    """Lanes starting at q0 (B, 18)."""
+    bsz, dev = q0.shape[0], q0.device
+    toe = rbd.site_positions(model, q0)[:, a1.TOE_SITES]
+    zeros5 = torch.zeros((bsz, 5), dtype=dtype, device=dev)
+    alpha0 = torch.stack([zeros5 + q0[:, 0:1], zeros5, zeros5 + q0[:, 1:2],
+                          zeros5], 1)
+    return AgentState(
+        loco_tick=torch.zeros(bsz, dtype=dtype, device=dev),
+        gait_domain=torch.zeros(bsz, dtype=torch.int32, device=dev),
+        planner=motion.init(motion_cfg, q0[:, 0:3], toe, dtype),
+        con=contact.init(bsz, device=dev),
+        mpc_alpha=alpha0,
+        mpc_states=torch.zeros((bsz, 4, 4), dtype=dtype, device=dev),
+        mpc_available=torch.zeros(bsz, dtype=torch.bool, device=dev),
+        prev_ddq=torch.zeros((bsz, 18), dtype=dtype, device=dev),
+    )
+
+
+def set_mpc_data(state: AgentState, alpha_com, mpc_states) -> AgentState:
+    return state._replace(mpc_alpha=alpha_com, mpc_states=mpc_states,
+                          mpc_available=torch.ones_like(state.mpc_available))
+
+
+def eval_com_traj(state: AgentState, phase, max_phase=1.05):
+    """(B, 4) = (x, dx, y, dy) of the COM Bezier: at the phase where fresh
+    MPC data is available, else the stale solution at s = max_phase."""
+    s = torch.where(state.mpc_available, phase,
+                    torch.full_like(phase, max_phase))
+    return bz.bezier(state.mpc_alpha, s[:, None])
+
+
+class TickCtx(NamedTuple):
+    """Context carried from tick_build to tick_finish."""
+
+    vc: lowlevel.VcOut
+    ll_ctx: lowlevel.LLCtx
+    state_pre: AgentState     # the new state, prev_ddq not yet updated
+    run_mpc: torch.Tensor     # (B,) bool
+
+
+def _gait_check(gait, reduced):
+    if gait not in (Gait.STAND, Gait.TROT):
+        raise NotImplementedError(
+            f"srbx_torch ports the STAND and TROT gaits only, got {gait!r}")
+    if reduced:
+        raise NotImplementedError(
+            "srbx_torch does not port the reduced LL build (ll_reduced)")
+
+
+def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
+               model: rbd.Model, gait: Gait, state: AgentState, q, qd,
+               foot_force, force_new_domain=False, force_thresh: float = 15.0,
+               f_des=None, allow_contact_trigger: bool = True,
+               reduced: bool = False, d_inv=None):
+    """Everything in a control tick up to the LL-QP solve, for every lane:
+    q, qd (B, 18), foot_force (B, 4). force_new_domain: a bool for all lanes
+    or a (B,) mask. d_inv: (B, 18, 18) D(q)^-1 for the LL build.
+
+    Returns (lowlevel.LLQpData, TickCtx)."""
+    _gait_check(gait, reduced)
+    dtype = q.dtype
+    bsz = q.shape[0]
+    dom_ticks_gait = float(motion_cfg.trot_dom_ticks)
+
+    if gait == Gait.TROT:
+        phase = state.loco_tick / dom_ticks_gait
+    else:
+        phase = state.loco_tick / state.planner.dom_ticks
+
+    # domain-change detection
+    time_trigger = phase > motion_cfg.max_phase
+    if gait == Gait.STAND:
+        time_trigger = torch.zeros_like(time_trigger)
+    time_trigger = time_trigger | force_new_domain
+    con = contact.update(state.con, foot_force, phase, force_thresh)
+    contact_trigger = con.change_domain
+    if gait == Gait.STAND or not allow_contact_trigger:
+        contact_trigger = torch.zeros_like(contact_trigger)
+    change = time_trigger | contact_trigger
+
+    run_mpc = change
+    mpc_available = state.mpc_available & ~change
+    gait_domain = state.gait_domain + change.to(torch.int32)
+    loco_tick = torch.where(change, 0.0, state.loco_tick)
+    phase = torch.where(change, 0.0, phase)
+
+    # COM trajectory and planning
+    sites = rbd.site_positions(model, q)
+    toe_pos = sites[:, a1.TOE_SITES]
+    hip_pos = sites[:, a1.HIP_SITES]
+    planner = state.planner
+    if gait == Gait.STAND:
+        toe_t = toe_pos.transpose(1, 2)
+        planner = planner._replace(
+            com_des=motion.stand_com(motion_cfg, planner, phase),
+            toe_init=toe_t, toe_final=toe_t)
+        con = contact.set_des_domain(con, torch.ones_like(con.des))
+    else:
+        com_vals = eval_com_traj(state._replace(mpc_available=mpc_available),
+                                 phase, motion_cfg.max_phase)
+        com_traj = torch.stack([q[:, 0] + 0.001 * com_vals[:, 1],
+                                q[:, 1] + 0.001 * com_vals[:, 3],
+                                com_vals[:, 1], com_vals[:, 3]], -1)
+        planner = motion.set_com_des(planner, com_traj,
+                                     motion_cfg.stand_height)
+        planner = motion.plan_trot(motion_cfg, planner, change, con.des,
+                                   toe_pos, qd[:, 0:2], state.mpc_states)
+        con = contact.select(
+            change, contact.set_des_domain(con, planner.des_domain), con)
+        planner = motion.update_toe_final(planner, change, con.ind,
+                                          con.ind_prev, toe_pos)
+
+    # virtual constraints and the LL QP
+    ci = con.ind.to(dtype)
+    sj, jdqd = rbd.site_jacobians_and_jdot_qd(model, q, qd)
+    traj = lowlevel.TrajIn(
+        com_des=planner.com_des,
+        toe_init=planner.toe_init,
+        step_len=planner.step_len,
+        dom_ticks=(torch.full((bsz,), dom_ticks_gait, dtype=dtype,
+                              device=q.device)
+                   if gait == Gait.TROT else planner.dom_ticks),
+        toe_offset_z=torch.tensor(motion_cfg.toe_offset_z, dtype=dtype),
+    )
+    vc = lowlevel.virtual_constraints(
+        ll_cfg, motion_cfg, q, qd, ci, phase, traj, state.prev_ddq,
+        toe_pos, sj[:, a1.TOE_SITES], jdqd[:, a1.TOE_SITES],
+        hip_pos, sj[:, a1.HIP_SITES], jdqd[:, a1.HIP_SITES],
+    )
+    if f_des is None:
+        f_des = torch.zeros((bsz, 12), dtype=dtype, device=q.device)
+    data, ll_ctx = lowlevel.ll_qp_build(ll_cfg, model, q, qd, ci, vc, f_des,
+                                        d_inv=d_inv)
+    state_pre = AgentState(
+        loco_tick=loco_tick + 1.0,
+        gait_domain=gait_domain,
+        planner=planner,
+        con=con,
+        mpc_alpha=state.mpc_alpha,
+        mpc_states=state.mpc_states,
+        mpc_available=mpc_available,
+        prev_ddq=state.prev_ddq,
+    )
+    return data, TickCtx(vc, ll_ctx, state_pre, run_mpc)
+
+
+def tick_finish(ll_cfg: LowLevelConfig, ctx: TickCtx, q, qd, sol_x,
+                converged, reduced: bool = False, delta=None):
+    """Complete the tick from the solved LL QP: the torques and the state
+    update. delta: (B, 12, 12) inverse of the swing operational-space
+    matrix. Returns (ll_out, new_state, run_mpc)."""
+    _gait_check(Gait.TROT, reduced)
+    ll_out = lowlevel.ll_qp_finish(ll_cfg, ctx.ll_ctx, q, qd, ctx.vc, sol_x,
+                                   converged, delta=delta)
+    return (ll_out, ctx.state_pre._replace(prev_ddq=ll_out.ddq),
+            ctx.run_mpc)

@@ -1,11 +1,13 @@
 """Carry state across the two packages.
 
-The NMPC cycle has no learned weights; its state is what a user hands it:
-the carry (`MpcCarry`), the reference (`RefTraj`), obstacle fields,
-footholds, contacts and QP operands. `from_numpy` turns any tree of arrays
-(numpy, or anything `np.asarray` accepts, such as the JAX package's arrays)
-into tensors, and the JAX package's NamedTuples into the port's of the same
-name; `to_numpy` is the way back.
+The system has no learned weights; its state is what a user hands it or
+gets back: the NMPC carry (`MpcCarry`) and reference (`RefTraj`), the
+whole-body loop's plant, agent, contact-estimator and planner states
+(`SimState`, `AgentState`, `ConState`, `PlannerState`) and its result
+(`LoopResult`), obstacle fields, footholds and QP operands. `from_numpy`
+turns any tree of arrays (numpy, or anything `np.asarray` accepts, such as
+the JAX package's arrays) into tensors, and the JAX package's NamedTuples
+into the port's of the same name and fields; `to_numpy` is the way back.
 """
 
 from __future__ import annotations
@@ -13,11 +15,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from srbx_torch import mpc, ocp, refplan
+from srbx_torch import agent, lowlevel, motion, mpc, ocp, refplan
+from srbx_torch.estimation import contact
+from srbx_torch.ops import qp_batch
+from srbx_torch.sim import closedloop, wholebody
 
 _PORT_TYPES = {
     cls.__name__: cls
-    for cls in (mpc.MpcCarry, mpc.MpcOutput, refplan.RefTraj, ocp.OcpData)
+    for cls in (mpc.MpcCarry, mpc.MpcOutput, refplan.RefTraj, ocp.OcpData,
+                wholebody.SimState, agent.AgentState,
+                agent.TickCtx, contact.ConState, motion.PlannerState,
+                closedloop.LoopResult, lowlevel.VcOut, lowlevel.TrajIn,
+                lowlevel.LLOut, lowlevel.LLQpData, lowlevel.LLCtx,
+                qp_batch.BatchSolution)
 }
 
 
@@ -26,8 +36,10 @@ def _is_namedtuple(tree) -> bool:
 
 
 def from_numpy(tree, device=None, dtype=torch.float64):
-    """Tree of arrays -> tree of tensors on `device`. Floating leaves take
-    `dtype`; integer and boolean leaves keep their own type."""
+    """Tree of arrays -> tree of tensors on `device` (None means the CUDA
+    card). Floating leaves take `dtype`; integer and boolean leaves keep
+    their own type."""
+    device = "cuda" if device is None else device
     if tree is None:
         return None
     if _is_namedtuple(tree):
@@ -41,7 +53,7 @@ def from_numpy(tree, device=None, dtype=torch.float64):
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if t.is_floating_point():
         t = t.to(dtype)
-    return t.to(device) if device is not None else t
+    return t.to(device)
 
 
 def to_numpy(tree):

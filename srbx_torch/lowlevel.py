@@ -1,0 +1,325 @@
+"""1 kHz whole-body low-level controller, batched over lanes: virtual
+constraints and the QP for torques.
+
+Counterpart of `srbx/lowlevel.py` on the path of the batched closed loop:
+`virtual_constraints`, `ll_qp_build` (the full 43-variable QP), the swing
+operational-space matrix `swing_delta_inv` and `ll_qp_finish`. Static
+padded shapes, variable contact counts by masking, exactly as there:
+
+    decision x = [F (12: 3 per leg) | tau (12) | aux (18) | clf defect]  n 43
+    equalities: contact rows (12, masked to stance legs),
+                output rows (18, masked to base and swing legs)        me 30
+    inequalities: friction pyramids (20, masked), +-tau (24), CLF      mi 45
+
+Every argument carries a leading lane axis B. The operands are built
+batched with `torch.cat` and products (no per-lane writes); where the JAX
+package multiplies by the constant selector B = [0; I12] the port slices,
+which gives the same numbers. Not ported: the CLF row (`use_clf=True`) and
+the reduced (aux-eliminated) build; both raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from srbx_torch.config import TOTAL_DOF, LowLevelConfig, MotionConfig
+from srbx_torch.models import a1, rbd
+from srbx_torch.ops import bezier as bz
+
+N_DEC = 43
+N_EQ = 30
+N_INEQ = 45
+
+
+class VcOut(NamedTuple):
+    y: torch.Tensor         # (B, 18) outputs (masked rows zero)
+    dy: torch.Tensor        # (B, 18)
+    h0_mat: torch.Tensor    # (B, 18, 18) output map H0 (masked rows zero)
+    dh0: torch.Tensor       # (B, 18) J̇q̇ of the outputs
+    hd: torch.Tensor        # (B, 18) desired outputs
+    dhd: torch.Tensor       # (B, 18)
+    ddhd: torch.Tensor      # (B, 18)
+    out_mask: torch.Tensor  # (B, 18) 1 on active output rows
+
+
+class TrajIn(NamedTuple):
+    """Per-domain trajectory data (the motion planner's outputs)."""
+
+    com_des: torch.Tensor      # (B, 12)
+    toe_init: torch.Tensor     # (B, 3, 4)
+    step_len: torch.Tensor     # (B, 3)
+    dom_ticks: torch.Tensor    # (B,)
+    toe_offset_z: torch.Tensor  # () ground-contact z offset
+
+
+class LLOut(NamedTuple):
+    tau: torch.Tensor          # (B, 12) joint torques
+    grf: torch.Tensor          # (B, 12) QP contact forces (masked 0)
+    y: torch.Tensor
+    dy: torch.Tensor
+    ddq: torch.Tensor          # (B, 18) commanded acceleration
+    q_next: torch.Tensor       # (B, 18) integrated joint command
+    dq_next: torch.Tensor
+    v_lyap: torch.Tensor       # (B,) CLF value (0 when unused)
+    dv_lyap: torch.Tensor
+    qp_converged: torch.Tensor
+
+
+class LLQpData(NamedTuple):
+    """The LL QP operands, batch-leading."""
+
+    P: torch.Tensor     # (B, 43, 43)
+    c: torch.Tensor     # (B, 43)
+    A: torch.Tensor     # (B, 30, 43)
+    b: torch.Tensor     # (B, 30)
+    G: torch.Tensor     # (B, 45, 43)
+    h: torch.Tensor     # (B, 45)
+
+
+class LLCtx(NamedTuple):
+    """What the finish stage needs from the build."""
+
+    d_inv: torch.Tensor     # (B, 18, 18)
+    b_mat: torch.Tensor     # (B, 18, 12)
+    h_bias: torch.Tensor    # (B, 18)
+    jc_flat: torch.Tensor   # (B, 12, 18) masked contact Jacobian
+    toe_jac: torch.Tensor   # (B, 4, 3, 18)
+    toe_pos: torch.Tensor   # (B, 4, 3)
+    con: torch.Tensor       # (B, 4)
+    v: torch.Tensor         # CLF terms (zeros: the CLF is not ported)
+    lf_v: torch.Tensor
+    lg_v: torch.Tensor
+    c_eps: torch.Tensor
+
+
+def virtual_constraints(ll_cfg: LowLevelConfig, motion: MotionConfig, q, qd,
+                        contact_ind, phase, traj: TrajIn, prev_ddq, toe_pos,
+                        toe_jac, toe_jdqd, hip_pos, hip_jac, hip_jdqd) -> VcOut:
+    """Outputs y, dy and the output map (18 rows: base pose, then each
+    leg's toe, masked to swing legs). Shapes: q, qd, prev_ddq (B, 18);
+    contact_ind (B, 4); phase (B,); toe/hip positions (B, 4, 3), Jacobians
+    (B, 4, 3, 18), J̇q̇ (B, 4, 3)."""
+    dtype = q.dtype
+    bsz = q.shape[0]
+    swing = 1.0 - contact_ind.to(dtype)                       # (B, 4)
+    zeros6 = torch.zeros((bsz, 6), dtype=dtype, device=q.device)
+
+    h0_base = torch.eye(6, TOTAL_DOF, dtype=dtype, device=q.device).expand(
+        bsz, 6, TOTAL_DOF)
+    h0_mat = torch.cat(
+        [h0_base, (swing[:, :, None, None] * toe_jac).reshape(bsz, 12, -1)], 1)
+    dh0 = torch.cat([zeros6, (swing[:, :, None] * toe_jdqd).reshape(bsz, 12)],
+                    1)
+
+    dt = traj.dom_ticks / (1.0 * ll_cfg.ctrl_hz)             # (B,)
+    ds = 1.0 / dt
+
+    hip_vel = torch.einsum("blin,bn->bli", hip_jac, qd)      # (B, 4, 3)
+    hip_acc = torch.einsum("blin,bn->bli", hip_jac, prev_ddq) + hip_jdqd
+    s = phase[:, None]
+    zero = torch.zeros_like(hip_vel[..., 0])                  # (B, 4)
+
+    def lateral(axis):
+        target = hip_pos[..., axis] + traj.step_len[:, axis, None]
+        start = traj.toe_init[:, axis, :]
+        alpha = torch.stack([start, start, target, target], -1)
+        d_alpha = torch.stack([zero, zero, hip_vel[..., axis],
+                               hip_vel[..., axis]], -1)
+        dd_alpha = torch.stack([zero, zero, hip_acc[..., axis],
+                                hip_acc[..., axis]], -1)
+        return bz.varying_bezier(alpha, d_alpha, dd_alpha, s, dt[:, None])
+
+    px, vx, axx = lateral(0)
+    py, vy, ayy = lateral(1)
+    to = traj.toe_offset_z
+    sw = torch.full_like(zero, motion.swing_height)
+    start_z = traj.toe_init[:, 2, :]
+    az = torch.stack([start_z, start_z, sw, sw, sw, zero + (to + 0.005),
+                      zero + (to + 0.005), zero + to], -1)
+    pz = bz.bezier(az, s)
+    vz = bz.bezier_d(az, s) * ds[:, None]
+    azz = bz.bezier_dd(az, s) * ds[:, None] * ds[:, None]
+    toe_hd = torch.stack([px, py, pz], -1)                   # (B, 4, 3)
+    toe_dhd = torch.stack([vx, vy, vz], -1)
+    toe_ddhd = torch.stack([axx, ayy, azz], -1)
+
+    sw3 = swing[:, :, None]
+    hd = torch.cat([traj.com_des[:, 0:3], traj.com_des[:, 6:9],
+                    (sw3 * toe_hd).reshape(bsz, 12)], 1)
+    dhd = torch.cat([traj.com_des[:, 3:6], traj.com_des[:, 9:12],
+                     (sw3 * toe_dhd).reshape(bsz, 12)], 1)
+    ddhd = torch.cat([zeros6, (sw3 * toe_ddhd).reshape(bsz, 12)], 1)
+    out_mask = torch.cat([torch.ones_like(zeros6),
+                          swing.repeat_interleave(3, -1)], 1)
+    h0 = torch.cat([q[:, 0:6], (sw3 * toe_pos).reshape(bsz, 12)], 1)
+    dh0_vel = (h0_mat @ qd[:, :, None])[..., 0]
+    y = (h0 - hd) * out_mask
+    dy = (dh0_vel - dhd) * out_mask
+    return VcOut(y, dy, h0_mat, dh0 * out_mask, hd, dhd, ddhd, out_mask)
+
+
+@functools.lru_cache(maxsize=None)
+def _qp_consts(ll_cfg: LowLevelConfig, dtype, device):
+    """The LL QP's lane-independent parts: diag(P), G with every friction
+    block present, and the torque-bound rows of h."""
+    p_diag = np.concatenate([np.full(12, ll_cfg.df_pen),
+                             np.full(12, ll_cfg.tau_pen),
+                             np.full(18, ll_cfg.aux_pen), [1.0]])
+    mu = ll_cfg.mu
+    gc = np.array([[1.0, 0.0, -mu / np.sqrt(2)],
+                   [-1.0, 0.0, -mu / np.sqrt(2)],
+                   [0.0, 1.0, -mu / np.sqrt(2)],
+                   [0.0, -1.0, -mu / np.sqrt(2)],
+                   [0.0, 0.0, -1.0]])
+    g = np.zeros((N_INEQ, N_DEC))
+    for i in range(4):
+        g[5 * i:5 * i + 5, 3 * i:3 * i + 3] = gc
+    g[20:32, 12:24] = np.eye(12)
+    g[32:44, 12:24] = -np.eye(12)
+    sat = np.tile(np.asarray(ll_cfg.sat), 4)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    sel = np.zeros((TOTAL_DOF, 12))
+    sel[6:] = np.eye(12)
+    return (t(np.diag(p_diag)), t(g), t(np.concatenate([sat, sat, [1.0]])),
+            t(np.eye(N_EQ - 12)), t(sel))
+
+
+def ll_qp_build(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd, contact_ind,
+                vc: VcOut, f_des, include_coriolis: bool = False, d_inv=None):
+    """Assemble the LL QP for every lane without solving it. Returns
+    (LLQpData, LLCtx); the batched loop solves all lanes in one call of the
+    fused IPM and then runs `ll_qp_finish`.
+
+    d_inv: (B, 18, 18) D(q)^-1; when None it is computed here with
+    `srbx_torch.ops.spd.inverse` (the JAX package's per-lane inverse is an
+    LU one)."""
+    if ll_cfg.use_clf:
+        raise NotImplementedError("srbx_torch does not port the CLF row of "
+                                  "the LL QP (LowLevelConfig.use_clf)")
+    from srbx_torch.ops import spd
+
+    dtype = q.dtype
+    bsz = q.shape[0]
+    h_bias = rbd.bias_forces(model, q, qd, include_coriolis=include_coriolis)
+    if d_inv is None:
+        d_inv = spd.inverse(rbd.mass_matrix(model, q))
+    p_mat, g_full, h_bounds, eye18, sel = _qp_consts(ll_cfg, dtype, q.device)
+    b_mat = sel.expand(bsz, TOTAL_DOF, 12)
+
+    sj, jdqd = rbd.site_jacobians_and_jdot_qd(model, q, qd)
+    toe_jac = sj[:, a1.TOE_SITES]                                # (B, 4, 3, 18)
+    toe_jdqd = jdqd[:, a1.TOE_SITES]
+    con = contact_ind.to(dtype)
+    con3 = con.repeat_interleave(3, -1)                          # (B, 12)
+    jc_flat = (toe_jac * con[:, :, None, None]).reshape(bsz, 12, TOTAL_DOF)
+    djc_qd = (toe_jdqd * con[:, :, None]).reshape(bsz, 12)
+    kp, kd = ll_cfg.kp, ll_cfg.kd
+
+    # cost
+    P = p_mat.expand(bsz, N_DEC, N_DEC).contiguous()
+    c = torch.cat([-ll_cfg.df_pen * f_des * con3,
+                   torch.zeros((bsz, N_DEC - 12), dtype=dtype,
+                               device=q.device)], 1)
+
+    # equalities: rows 0:12 contact, rows 12:30 outputs
+    jc_t = jc_flat.transpose(1, 2)
+    jc_dinv = jc_flat @ d_inv                                    # (B, 12, 18)
+    h0_dinv = vc.h0_mat @ d_inv                                  # (B, 18, 18)
+    zeros_c = torch.zeros((bsz, 12, N_DEC - 24), dtype=dtype, device=q.device)
+    a_eq = torch.cat([
+        torch.cat([jc_dinv @ jc_t, jc_dinv[:, :, 6:], zeros_c], 2),
+        torch.cat([h0_dinv @ jc_t, h0_dinv[:, :, 6:],
+                   eye18 * vc.out_mask[:, None, :],
+                   torch.zeros((bsz, 18, 1), dtype=dtype, device=q.device)],
+                  2),
+    ], 1)
+    b_eq = torch.cat([
+        (jc_dinv @ h_bias[:, :, None])[..., 0] - djc_qd,
+        (-kp * vc.y - kd * vc.dy + (h0_dinv @ h_bias[:, :, None])[..., 0]
+         - vc.dh0) * vc.out_mask,
+    ], 1)
+
+    # inequalities: friction pyramids scaled by contact, torque bounds
+    con5 = con.repeat_interleave(5, -1)                          # (B, 20)
+    row_scale = torch.cat([con5, torch.ones((bsz, N_INEQ - 20), dtype=dtype,
+                                            device=q.device)], 1)
+    G = g_full * row_scale[:, :, None]
+    h = torch.cat([torch.where(con5 > 0, 0.0, 1.0),
+                   h_bounds.expand(bsz, N_INEQ - 20)], 1)
+
+    toe_pos = rbd.site_positions(model, q)[:, a1.TOE_SITES]
+    zero = torch.zeros(bsz, dtype=dtype, device=q.device)
+    data = LLQpData(P, c.contiguous(), a_eq.contiguous(), b_eq.contiguous(),
+                    G.contiguous(), h.contiguous())
+    ctx = LLCtx(d_inv, b_mat, h_bias, jc_flat, toe_jac, toe_pos, con,
+                zero, zero, torch.zeros((bsz, 18), dtype=dtype,
+                                        device=q.device), zero)
+    return data, ctx
+
+
+def swing_delta_inv(ctx: LLCtx):
+    """Js D^-1 Js' (+ I on the stance legs' rows), (B, 12, 12): the swing
+    operational-space matrix whose inverse's diagonal sets the swing-PD
+    gain."""
+    bsz = ctx.con.shape[0]
+    swing = 1.0 - ctx.con
+    js_flat = (ctx.toe_jac * swing[:, :, None, None]).reshape(bsz, 12,
+                                                              TOTAL_DOF)
+    return (js_flat @ ctx.d_inv @ js_flat.transpose(1, 2)
+            + torch.diag_embed(ctx.con.repeat_interleave(3, -1)))
+
+
+def ll_qp_finish(ll_cfg: LowLevelConfig, ctx: LLCtx, q, qd, vc: VcOut, sol_x,
+                 converged, delta=None) -> LLOut:
+    """Torques from the solved LL QP: forces and torques from x, the
+    swing-leg PD add-on, and the joint-command integration.
+
+    delta: (B, 12, 12) inverse of `swing_delta_inv(ctx)`; when None it is
+    computed here with `srbx_torch.ops.spd.inverse`."""
+    if ll_cfg.use_clf:
+        raise NotImplementedError("srbx_torch does not port the CLF row of "
+                                  "the LL QP (LowLevelConfig.use_clf)")
+    from srbx_torch.ops import spd
+
+    dtype = q.dtype
+    bsz = q.shape[0]
+    con = ctx.con
+    swing = 1.0 - con
+    con3 = con.repeat_interleave(3, -1)
+    f_qp = sol_x[:, 0:12] * con3
+    tau = sol_x[:, 12:24]
+
+    js_flat = (ctx.toe_jac * swing[:, :, None, None]).reshape(bsz, 12,
+                                                              TOTAL_DOF)
+    if delta is None:
+        delta = spd.inverse(swing_delta_inv(ctx))
+    wd, kd_sw = 40.0, 40.0
+    sw3 = swing[:, :, None]
+    p_err = (sw3 * (vc.hd[:, 6:18].reshape(bsz, 4, 3) - ctx.toe_pos)
+             ).reshape(bsz, 12)
+    toe_vel = torch.einsum("blin,bn->bli", ctx.toe_jac, qd)
+    v_err = (sw3 * (vc.dhd[:, 6:18].reshape(bsz, 4, 3) - toe_vel)
+             ).reshape(bsz, 12)
+    kp_sw = wd * wd * torch.diagonal(delta, dim1=1, dim2=2)
+    zeros6 = torch.zeros((bsz, 6), dtype=dtype, device=q.device)
+    pd = kp_sw * p_err + kd_sw * v_err
+    tau_full = torch.cat([zeros6, tau], 1) \
+        + (js_flat.transpose(1, 2) @ pd[:, :, None])[..., 0]
+
+    gen = (torch.cat([zeros6, tau_full[:, 6:]], 1)
+           + (ctx.jc_flat.transpose(1, 2) @ f_qp[:, :, None])[..., 0]
+           - ctx.h_bias)
+    ddq = (ctx.d_inv @ gen[:, :, None])[..., 0]
+    hz = float(ll_cfg.ctrl_hz)
+    dq_next = qd + ddq / hz
+    q_next = q + dq_next / hz + 0.5 / (hz * hz) * ddq
+    return LLOut(tau=tau_full[:, 6:], grf=f_qp, y=vc.y, dy=vc.dy, ddq=ddq,
+                 q_next=q_next, dq_next=dq_next, v_lyap=ctx.v,
+                 dv_lyap=torch.zeros_like(ctx.v), qp_converged=converged)

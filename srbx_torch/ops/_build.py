@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels of srbx_torch.
 
-The sources under `srbx_torch/csrc/` are compiled at first use with `nvcc`
-into one shared library with a plain C interface, which is loaded with
-`ctypes`:
+The sources under `srbx_torch/csrc/` are compiled at first use with `nvcc`,
+one process per source, all started together, and linked into one shared
+library with a plain C interface, which is loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o srbx_torch/build/libsrbx_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c csrc/<name>.cu -o build/<hash>/<name>.o   # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
+         srbx_torch/build/libsrbx_torch_<hash>.so build/<hash>/*.o
 
 The file name carries a hash of the sources and flags, so an edit rebuilds.
 `torch.utils.cpp_extension.load` is not used: a source that includes
@@ -29,9 +31,9 @@ BUILD_DIR = PACKAGE_DIR / "build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 # No --use_fast_math: the kernels keep IEEE division and square root.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,9 +45,26 @@ _QP_FUSED_ARGTYPES = (
     + [ctypes.c_int] * 3                       # max_iters refine has_x0
     + [_P]                                     # stream
 )
+_QP_GENERAL_ARGTYPES = (
+    [_P] * 12                          # P c A b G h x0 | x y z s stat
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    #                                    B, n, me, mi
+    + [ctypes.c_double] * 6            # abstol reltol reg_primal reg_dual
+    #                                    sigma_min step_frac
+    + [ctypes.c_int] * 3               # max_iters refine has_x0
+    + [_P]                             # stream
+)
+_SPD_SOLVE_ARGTYPES = [_P] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_P]
+_SPD_INVERSE_ARGTYPES = [_P] * 2 + [ctypes.c_longlong, ctypes.c_int, _P]
 ENTRY_POINTS = {
     "srbx_qp_fused_noeq_f32": _QP_FUSED_ARGTYPES,
     "srbx_qp_fused_noeq_f64": _QP_FUSED_ARGTYPES,
+    "srbx_qp_general_f32": _QP_GENERAL_ARGTYPES,
+    "srbx_qp_general_f64": _QP_GENERAL_ARGTYPES,
+    "srbx_spd_solve_f32": _SPD_SOLVE_ARGTYPES,
+    "srbx_spd_solve_f64": _SPD_SOLVE_ARGTYPES,
+    "srbx_spd_inverse_f32": _SPD_INVERSE_ARGTYPES,
+    "srbx_spd_inverse_f64": _SPD_INVERSE_ARGTYPES,
 }
 
 
@@ -83,25 +102,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsrbx_torch_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(commands):
+    """Run the commands concurrently; raise with the output of any that
+    fails. Returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(commands, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
-    """Compile csrc/ into the build directory unless this version exists."""
+    """Compile csrc/ into the build directory unless this version exists:
+    one nvcc per source, all at once, then one link."""
     lib = library_path()
     if lib.is_file():
         return lib
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"{lib.stem}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    objs = [obj_dir / f"{src.stem}.o" for src in sources()]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                    for src, obj in zip(sources(), objs)])
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    shutil.rmtree(obj_dir, ignore_errors=True)
     # -Xptxas -v reports registers, stack and spills per kernel
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)
     return lib
 

@@ -95,7 +95,9 @@ def _forces(cfg: RefPlanConfig, pos, pobs):
 
 def resolve_matrices(cfg: RefPlanConfig, dtype=torch.float64, device=None):
     """Per-axis discrete (Ad, Bd): the literal reference matrices when
-    cfg.ad_ref is set, else the exact ZOH closed form."""
+    cfg.ad_ref is set, else the exact ZOH closed form. device=None means
+    the CUDA card."""
+    device = "cuda" if device is None else device
     if cfg.ad_ref:
         ad = np.array([[1.0, cfg.ad_ref[0]], [0.0, cfg.ad_ref[1]]])
         bd = np.array([[cfg.bd_ref[0]], [cfg.bd_ref[1]]])
@@ -127,8 +129,9 @@ def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
     p_start: (2*n_agents,) starting xy per agent; pobs: (2, n_obs).
     Returns RefTraj with T = loop_size // downsample knots (the reference's
     2-knot lead-in is reproduced by shifting and edge-padding the tail).
+    device=None means the CUDA card.
     """
-    device = device if device is not None else p_start.device
+    device = "cuda" if device is None else device
     na = cfg.n_agents
     ad, bd = resolve_matrices(cfg, dtype, device)
     pobs_t = pobs.T.to(dtype=dtype, device=device)

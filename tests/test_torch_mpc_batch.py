@@ -41,7 +41,8 @@ POBS = np.stack([np.random.default_rng(0).uniform(2.0, 8.0, 20),
 
 def _reference():
     ref = refplan.generate(refplan.two_agent_config(loop_size=4_000),
-                           torch.tensor(P_START), torch.tensor(POBS))
+                           torch.tensor(P_START), torch.tensor(POBS),
+                           device="cpu")
     return ref.pr[0:2].numpy(), ref.prd[0:2].numpy()
 
 
@@ -105,7 +106,7 @@ def _jax_cycle(qp_cfg, inp):
 
 
 def _port_cycle(qp_cfg, inp):
-    t = convert.from_numpy(inp)
+    t = convert.from_numpy(inp, device="cpu")
     carry = mpc.MpcCarry(*t.pop("carry"))
     eps = inp.get("agent_circle_eps", 0.0)
     t.pop("agent_circle_eps", None)

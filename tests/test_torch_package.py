@@ -1,7 +1,10 @@
-"""srbx_torch's package boundary: no jax at import, the kernel build's
-errors, the fused-IPM wrapper's input checks, the branches of the cycle that
-are not ported, and the state conversion between the two packages."""
+"""srbx_torch's package boundary: neither jax nor the JAX package at
+import, its own copy of the configuration, the kernel build's errors, the
+fused-IPM wrapper's input checks, the entry points' default device, the
+branches that are not ported, and the state conversion between the two
+packages."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -11,33 +14,88 @@ import numpy as np
 import pytest
 import torch
 
+import srbx.config as jconfig
+from srbx import agent as jagent
+from srbx import motion as jmotion
 from srbx import mpc as jmpc
 from srbx import refplan as jrefplan
 from srbx.config import MpcConfig, QpConfig
-from srbx_torch import convert, mpc, mpc_batch, refplan
+from srbx.estimation import contact as jcontact
+from srbx.sim import closedloop as jclosedloop
+from srbx.sim import wholebody as jwb
+from srbx_torch import agent, config, convert, motion, mpc, mpc_batch, refplan
+from srbx_torch.estimation import contact
+from srbx_torch.models import a1
 from srbx_torch.ops import _build, qp_fused
+from srbx_torch.sim import closedloop, wholebody as wb
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-MODULES = ["srbx_torch", "srbx_torch.config", "srbx_torch.models.lip",
-           "srbx_torch.ops.bezier", "srbx_torch.ops.qp_fused",
-           "srbx_torch.ops._build",
-           "srbx_torch.refplan", "srbx_torch.ocp", "srbx_torch.sqp",
-           "srbx_torch.mpc", "srbx_torch.mpc_batch", "srbx_torch.convert"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (ROOT / "srbx_torch").rglob("*.py"))
 
 
 def test_import_pulls_in_no_jax():
+    """Importing every module of srbx_torch loads neither jax nor any
+    module of the JAX package `srbx`."""
+    assert {"srbx_torch.sim.closedloop", "srbx_torch.ops.spd",
+            "srbx_torch.models.rbd", "srbx_torch.lowlevel"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib')))\n")
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'srbx')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", ["LipConfig", "MpcConfig", "QpConfig",
+                                  "RefPlanConfig", "LowLevelConfig",
+                                  "MotionConfig"])
+def test_config_is_a_copy_of_the_jax_packages(name):
+    """Every field, default and derived property equals srbx.config's."""
+    mine, theirs = getattr(config, name), getattr(jconfig, name)
+    assert [(f.name, f.type) for f in dataclasses.fields(mine)] == \
+        [(f.name, f.type) for f in dataclasses.fields(theirs)]
+    assert dataclasses.asdict(mine()) == dataclasses.asdict(theirs())
+    props = [k for k, v in vars(theirs).items() if isinstance(v, property)]
+    assert props == [k for k, v in vars(mine).items()
+                     if isinstance(v, property)]
+    for variant in ({}, {"condensed": True, "elide_box_rows": True}):
+        if name == "MpcConfig" or not variant:
+            a, b = mine(**variant), theirs(**variant)
+            assert [getattr(a, p) for p in props] == \
+                [getattr(b, p) for p in props]
+
+
+def test_gait_and_dof_are_the_jax_packages():
+    assert [(g.name, int(g)) for g in config.Gait] == \
+        [(g.name, int(g)) for g in jconfig.Gait]
+    assert config.TOTAL_DOF == jconfig.TOTAL_DOF
+
+
+def test_entry_points_default_to_the_card():
+    """device=None means the CUDA card: without one, the call fails rather
+    than running on the CPU."""
+    cfg = refplan.two_agent_config(loop_size=40)
+    calls = [lambda: convert.from_numpy(np.zeros(2)),
+             lambda: refplan.resolve_matrices(cfg),
+             lambda: refplan.generate(cfg, torch.zeros(4),
+                                      torch.zeros(2, 20))]
+    for call in calls:
+        if torch.cuda.is_available():
+            out = call()
+            first = out[0] if isinstance(out, tuple) else out
+            assert first.device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -54,7 +112,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     first = _build.library_path()
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
-    assert "qp_fused.cu" in [s.name for s in _build.sources()]
+    assert {"qp_fused.cu", "qp_general.cu", "spd.cu"} <= {
+        s.name for s in _build.sources()}
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "qp_fused.cu").write_text(
@@ -119,16 +178,82 @@ def test_from_numpy_to_numpy_round_trip():
     jref = jrefplan.RefTraj(rng.normal(size=(4, 6)), rng.normal(size=(4, 6)))
     tree = {"carry": jcarry, "ref": jref, "pobs": rng.normal(size=(3, 2, 5)),
             "none": None}
-    t = convert.from_numpy(tree, dtype=torch.float32)
+    t = convert.from_numpy(tree, device="cpu", dtype=torch.float32)
     assert isinstance(t["carry"], mpc.MpcCarry)
     assert isinstance(t["ref"], refplan.RefTraj)
     assert t["carry"].gait_domain.dtype == torch.int32
     assert t["carry"].alpha_buffer.dtype == torch.float32
     assert t["none"] is None
-    back = convert.to_numpy(convert.from_numpy(tree))
+    back = convert.to_numpy(convert.from_numpy(tree, device="cpu"))
     assert isinstance(back["carry"], mpc.MpcCarry)
     for a, b in ((back["carry"].gait_domain, jcarry.gait_domain),
                  (back["carry"].alpha_buffer, jcarry.alpha_buffer),
                  (back["ref"].pr, jref.pr), (back["pobs"], tree["pobs"])):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def _loop_args(bsz=2):
+    return (MpcConfig(use_sqp=True, sqp_iters=1, condensed=True,
+                      elide_box_rows=True, elide_simplex=True),
+            config.LowLevelConfig(), config.MotionConfig(), QpConfig(),
+            wb.SimConfig(), closedloop.LoopConfig(1, 1, 1), a1.model(),
+            np.zeros((bsz, 2, 10)), np.zeros((bsz, 2, 10)),
+            np.zeros((bsz, 2)), np.full((bsz, 2, 20), 100.0))
+
+
+@pytest.mark.parametrize("change", [
+    dict(backend="xla"), dict(ll_reduced=True), dict(est_cfg=object()),
+    dict(stiction=True), dict(push=(None, None, None)),
+    dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False)),
+], ids=["xla", "ll_reduced", "est_cfg", "stiction", "push", "uncondensed"])
+def test_run_batch_unported_options_raise(change):
+    args = list(_loop_args())
+    if "mpc_cfg" in change:
+        args[0] = change.pop("mpc_cfg")
+    with pytest.raises(NotImplementedError):
+        closedloop.run_batch(*args, device="cpu", **change)
+
+
+def test_whole_body_state_round_trip():
+    """The JAX package's SimState, AgentState (with its PlannerState and
+    ConState) and LoopResult in numpy form become the port's types with the
+    same fields and values, and come back."""
+    rng = np.random.default_rng(1)
+    bsz = 3
+    f = lambda *s: rng.normal(size=(bsz,) + s)            # noqa: E731
+    i = lambda *s: rng.integers(0, 9, (bsz,) + s).astype(np.int32)  # noqa
+    flag = lambda *s: rng.random((bsz,) + s) > 0.5        # noqa: E731
+    planner = jmotion.PlannerState(f(12), f(3, 4), f(3, 4), f(3), f(), i(4),
+                                   f(3), f(3), i())
+    con = jcontact.ConState(i(4), flag(4), flag(4), flag(4), i(4), i(4),
+                            i(4), flag(), i())
+    ast = jagent.AgentState(f(), i(), planner, con, f(4, 5), f(4, 4), flag(),
+                            f(18))
+    sim = jwb.SimState(f(18), f(18))
+    res = jclosedloop.LoopResult(sim, ast, f(1, 3, 3), f(), f(), f(1, 2))
+    got = convert.from_numpy(res, device="cpu")
+    assert isinstance(got, closedloop.LoopResult)
+    assert isinstance(got.sim, wb.SimState) and got.sim.con is None
+    assert isinstance(got.agent, agent.AgentState)
+    assert isinstance(got.agent.planner, motion.PlannerState)
+    assert isinstance(got.agent.con, contact.ConState)
+    assert got.agent.con.hist.dtype == torch.int32
+    assert got.agent.con.est.dtype == torch.bool
+    back = convert.to_numpy(got)
+    flat = []
+
+    def walk(a, b):
+        if hasattr(a, "_fields"):
+            assert a._fields == b._fields
+            for x, y in zip(a, b):
+                walk(x, y)
+        elif a is None:
+            assert b is None
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+            flat.append(a)
+
+    walk(back, res)
+    assert len(flat) == 30

@@ -55,7 +55,8 @@ def _nmpc_qps(seed, domains, patterns):
     f64 = torch.float64
     ref = refplan.generate(refplan.two_agent_config(loop_size=400),
                            torch.tensor([0.0, 0.5, 0.0, -0.5], dtype=f64),
-                           torch.tensor([[3.0] * 20, [0.3] * 20], dtype=f64))
+                           torch.tensor([[3.0] * 20, [0.3] * 20], dtype=f64),
+                           device="cpu")
     q = torch.tensor(rng.uniform(-0.1, 0.1, (B, 2)))
     dq = torch.tensor(rng.normal(size=(B, 2)) * 0.02)
     dom = torch.tensor(rng.integers(*domains, B), dtype=torch.int32)
