@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Two paths, each driven through the entry point a user calls:
+Three paths, each driven through the entry point a user calls:
 
 * the batched CBF-NMPC control cycle (`srbx_torch.mpc_batch.run_nmpc_batch`
   on its lanes-last fused branch, kernel K1a) at the benchmark operating
@@ -12,7 +12,12 @@ Two paths, each driven through the entry point a user calls:
 * the whole-body 1 kHz closed loop (`srbx_torch.sim.closedloop.run_batch`:
   the LL QP through kernel K1b, the SPD inverses through K2b, the physics
   solves through K2a, the NMPC at each domain boundary through K1a) at
-  B = 4096 lanes, float32: 800 stand-up ticks and 2 trot domains of 172.
+  B = 4096 lanes, float32: 800 stand-up ticks and 2 trot domains of 172;
+* the NMPC cycle on its generic branch at the reference shape
+  (`run_nmpc_batch(backend="pallas", condensed=False)`: QPs of n 41, me 28,
+  mi 92 and 112 through the step-fused batched IPM, with the Cholesky and
+  Cholesky-solve kernels K3a and K3b on every iteration) at B = 131072,
+  float32.
 
 Phases, each printing JSON lines:
 
@@ -36,7 +41,19 @@ Phases, each printing JSON lines:
                launch counts, LL ticks/s; and the first 64 lanes in float64
                through the kernels and through the plain versions;
 8. wb_times  - K1b, K2a and K2b at the loop's shapes against their plain
-               versions and, for K2, one PyTorch call (library_ms).
+               versions and, for K2, one PyTorch call (library_ms);
+9. k3        - K3a and K3b against their plain versions on random SPD
+               matrices with one indefinite lane, at the generic cycle's
+               (k, r), in float64 and float32;
+10. generic_cycle - one generic cycle at B = 131072 float32, relaxed and
+               strict: finite, exact K3 launch counts, converged share; and
+               the first 512 lanes in float64 through the kernels and
+               through the plain versions;
+11. times    - generic cycles/s (pipelined and synced) and K3a and K3b,
+               at each (k, r) the relaxed cycle launched them with, against
+               their plain versions and torch.linalg.cholesky_ex /
+               torch.cholesky_solve (library_ms); their kernels-line rows
+               weight those shapes by their launches.
 
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
@@ -45,6 +62,7 @@ or outside the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -59,6 +77,7 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 131072
 CROSS_LANES = 512
 REPS = 10
+GEN_REPS = 3             # generic-cycle repetitions per timing
 WB_BATCH = 4096          # whole-body lanes
 WB_CROSS_LANES = 64      # whole-body lanes run in float64, kernels vs plain
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -99,6 +118,30 @@ def bound(nbytes, flops):
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def k3_work(k, r, bsz, itemsize=4):
+    """Bytes that K3a (r = 0) or K3b (r right-hand sides) must move on bsz
+    lanes, and the operations it does: the lower triangle of M or L read once
+    (k (k + 1) / 2 entries: nothing needs the rest), L (k x k, its zeros
+    included) or X written once, the right-hand sides read once; k^3 / 3
+    operations for the factorization, 2 k^2 r for the two substitutions."""
+    tri = k * (k + 1) // 2
+    if r == 0:
+        return itemsize * bsz * (tri + k * k), bsz * k ** 3 / 3
+    return itemsize * bsz * (tri + 2 * k * r), bsz * 2 * k * k * r
+
+
+def event_ms(fn, reps):
+    """Mean CUDA-event time in ms of `reps` back-to-back calls of fn."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def check(cond, what):
@@ -374,16 +417,6 @@ def main() -> int:
               "cycles_per_s_synced": synced,
               "converged": out.qp_converged.double().mean().item(),
               "qp_iters": int(out.qp_iters), "device": smi})
-
-    def event_ms(fn, reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
 
     qp, cases = cycle_qps(f32)
     k1_ms, k1_stat = {}, {}
@@ -769,6 +802,254 @@ def main() -> int:
             launches_by_path={"wholebody": wb_launches[key]},
             **bound(nbytes, flops)))
     kernels[0]["launches_by_path"]["wholebody"] = wb_launches["K1a"]
+
+    # ------------------------ 9. K3 kernels vs plain ----------------------- #
+    from srbx_torch.ops import pallas_linalg as plin, qp_batch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bad_lane = 7
+
+    def spd_batch(k, r, dtype):
+        """Well-conditioned SPD matrices (B, k, k) made on the card from a
+        seed, lane `bad_lane` indefinite, and right-hand sides (B, k, r)."""
+        a = torch.randn(BATCH, k, k, generator=gen, device=dev, dtype=dtype)
+        m = a @ a.mT / k + torch.eye(k, dtype=dtype, device=dev)
+        m[bad_lane, k // 2, k // 2] = -1.0
+        rhs = torch.randn(BATCH, k, r, generator=gen, device=dev,
+                          dtype=dtype)
+        return m, rhs
+
+    k3_counts = (plin.batch_cholesky, plin.batch_cho_solve)
+    counts0 = [k.launches for k in k3_counts]
+    k3_f64_err = {"K3a": 0.0, "K3b": 0.0}
+    good = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    good[bad_lane] = False
+    n_k3 = 0
+    # the generic cycle's (k, r): M^-1 A' (41, 28), M and S solves (41, 1)
+    # and (28, 1); the condensed forms' (17, 4) and (13, 1)
+    for dtype in (torch.float64, f32):
+        bound_rel = 1e-12 if dtype == torch.float64 else 1e-5
+        for k, r in ((41, 28), (41, 1), (28, 1), (17, 4), (13, 1)):
+            m, rhs = spd_batch(k, r, dtype)
+            lk, lp = plin.batch_cholesky(m), plin.batch_cholesky_plain(m)
+            xk = plin.batch_cho_solve(lp, rhs)
+            xp = plin.batch_cho_solve_plain(lp, rhs)
+            # the kernels read only the lower triangles: NaN above the
+            # diagonal of M and of L changes nothing
+            upper = torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
+            lk_nan = plin.batch_cholesky(m.masked_fill(upper, float("nan")))
+            xk_nan = plin.batch_cho_solve(
+                lp.masked_fill(upper, float("nan")), rhs)
+            torch.cuda.synchronize()
+            n_k3 += 2
+            rec = {"phase": "k3", "dtype": str(dtype), "lanes": BATCH,
+                   "k": k, "r": r, "bad_lane": bad_lane}
+            for name, got, want in (("K3a", lk, lp), ("K3b", xk, xp)):
+                err = (got[good] - want[good]).abs().max().item()
+                rec[f"{name}_max_abs_err"] = err
+                rec[f"{name}_max_rel_err"] = (
+                    err / want[good].abs().max().item())
+                rec[f"{name}_bitwise_equal"] = bool(torch.equal(
+                    got[good], want[good]))
+                rec[f"{name}_bad_lane_nonfinite"] = not bool(
+                    torch.isfinite(got[bad_lane]).all())
+                rec[f"{name}_other_lanes_finite"] = bool(
+                    torch.isfinite(got[good]).all())
+                if dtype == torch.float64:
+                    k3_f64_err[name] = max(k3_f64_err[name], err)
+            rec["K3a_upper_zero"] = bool(
+                (lk.triu(1) == 0).all())
+            rec["upper_triangle_ignored"] = (
+                torch.equal(lk_nan[good], lk[good])
+                and torch.equal(xk_nan[good], xk[good]))
+            rec["bound"] = (f"other lanes max|d| / max|value| <= "
+                            f"{bound_rel:g}; the indefinite lane non-finite, "
+                            "every other lane finite; strict upper "
+                            "triangle of L exactly zero; NaN above the "
+                            "diagonal of M and L changes no other lane")
+            rec["ok"] = (all((rec[f"{n}_max_rel_err"] <= bound_rel
+                              and rec[f"{n}_bad_lane_nonfinite"]
+                              and rec[f"{n}_other_lanes_finite"])
+                             for n in ("K3a", "K3b"))
+                         and rec["K3a_upper_zero"]
+                         and rec["upper_triangle_ignored"])
+            emit(rec)
+            check(rec["ok"], f"K3 kernels disagree with their plain "
+                  f"versions: {rec}")
+    check([k.launches - c for k, c in zip(k3_counts, counts0)]
+          == [n_k3, n_k3],
+          "the K3 kernels' counters did not advance once per call")
+
+    # ------------------------ 10. the generic cycle ------------------------ #
+    # The reference-shape formulation off the TPU: uncondensed (n 41, me 28,
+    # mi 92; SCP mi 112), the step-fused batched IPM with backend "pallas".
+    gen_cfg = MpcConfig(use_sqp=True, sqp_iters=2)
+
+    def gen_cycle(args, qp_cfg):
+        return mpc_batch.run_nmpc_batch(gen_cfg, qp_cfg, *args,
+                                        backend="pallas", condensed=False)
+
+    solve_iters = []
+    real_solve = qp_batch.solve
+
+    def recording_solve(*a, **kw):
+        sol = real_solve(*a, **kw)
+        solve_iters.append(int(sol.iters))
+        return sol
+
+    def expected_k3(qp_cfg):
+        """K3 launches of the solves just recorded: per solve with I
+        iterations, K3a 2 + 2 I and K3b 3 + (1 + 4 (1 + R)) I."""
+        refine = qp_cfg.kkt_refine_iters
+        return (sum(2 + 2 * i for i in solve_iters),
+                sum(3 + (1 + 4 * (1 + refine)) * i for i in solve_iters))
+
+    args = lanes(f32)
+    gen_cycle(args, relaxed)                   # warm-up
+    torch.cuda.synchronize()
+    gen_runs = {}
+    for cfg_name, qp_cfg in (("relaxed", relaxed), ("strict", strict)):
+        solve_iters.clear()
+        for k in k3_counts + (qp_fused.solve_lanes_last, qp_fused.solve):
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(qp_batch, "solve", recording_solve):
+            out = gen_cycle(args, qp_cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K3a": plin.batch_cholesky.launches,
+                    "K3b": plin.batch_cho_solve.launches,
+                    "K1a": qp_fused.solve_lanes_last.launches,
+                    "K1b": qp_fused.solve.launches}
+        exp_a, exp_b = expected_k3(qp_cfg)
+        expect = {"K3a": exp_a, "K3b": exp_b, "K1a": 0, "K1b": 0}
+        finite = all(bool(torch.isfinite(getattr(out, n)).all()) for n in (
+            "alpha_com", "states", "inputs", "x", "cbf_margin"))
+        rec = {"phase": "generic_cycle", "config": cfg_name, "lanes": BATCH,
+               "dtype": "float32", "n": 41, "me": 28,
+               "mi": [92, 112, 112], "solve_iters": list(solve_iters),
+               "launches": launches, "expected_launches": expect,
+               "converged": out.qp_converged.double().mean().item(),
+               "qp_iters": int(out.qp_iters), "wall_s": wall,
+               "finite": finite,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "shapes_ok": tuple(out.states.shape) == (BATCH, 4, 4),
+               "bound": ("finite; exact K3 launch counts, no K1 launch; "
+                         "first solve's converged share >= 0.9 relaxed"),
+               "device": smi}
+        rec["ok"] = (finite and launches == expect and rec["shapes_ok"]
+                     and (cfg_name == "strict" or rec["converged"] >= 0.9))
+        gen_runs[cfg_name] = rec
+        emit(rec)
+        check(rec["ok"], f"generic cycle check failed: {rec}")
+
+    # the first lanes in float64, through the kernels and through the plain
+    # versions: the K3 kernels are bitwise their plain versions, so rounding
+    # elsewhere is the only difference, and there is none
+    args64 = lanes(torch.float64, CROSS_LANES)
+    with mock.patch.object(plin, "batch_cholesky",
+                           plin.batch_cholesky_plain), \
+            mock.patch.object(plin, "batch_cho_solve",
+                              plin.batch_cho_solve_plain):
+        ref64 = gen_cycle(args64, strict)
+    ker64 = gen_cycle(args64, strict)
+    torch.cuda.synchronize()
+    cross = {"phase": "generic_cycle", "what": "f64 kernels vs plain",
+             "lanes": CROSS_LANES, "config": "strict",
+             "states": maxdiff(ker64.states, ref64.states),
+             "alpha_com": maxdiff(ker64.alpha_com, ref64.alpha_com),
+             "converged_equal": bool(
+                 (ker64.qp_converged == ref64.qp_converged).all()),
+             "converged": ker64.qp_converged.double().mean().item(),
+             "bound": "states and alpha_com <= 1e-9; equal converged flags"}
+    cross["ok"] = (cross["states"] <= 1e-9 and cross["alpha_com"] <= 1e-9
+                   and cross["converged_equal"])
+    emit(cross)
+    check(cross["ok"], f"generic cycle cross-check failed: {cross}")
+
+    # ----------------------- 11. generic-cycle times ---------------------- #
+    for cfg_name, qp_cfg in (("relaxed", relaxed), ("strict", strict)):
+        out = gen_cycle(args, qp_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GEN_REPS):
+            out = gen_cycle(args, qp_cfg)
+        torch.cuda.synchronize()
+        pipelined = BATCH * GEN_REPS / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(GEN_REPS):
+            out = gen_cycle(args, qp_cfg)
+            torch.cuda.synchronize()
+        synced = BATCH * GEN_REPS / (time.perf_counter() - t0)
+        emit({"phase": "times", "what": "generic_cycle", "config": cfg_name,
+              "lanes": BATCH, "dtype": "float32", "reps": GEN_REPS,
+              "cycles_per_s_pipelined": pipelined,
+              "cycles_per_s_synced": synced,
+              "converged": out.qp_converged.double().mean().item(),
+              "qp_iters": int(out.qp_iters), "device": smi})
+
+    # K3 at each (k, r) the relaxed generic cycle launched it with: the
+    # factorizations of M (k 41) and S (k 28) once per solve start and per
+    # iteration, M^-1 A' (41, 28) as often, and 2 (1 + R) single solves per
+    # iteration against M (41, 1) and S (28, 1); each kernels-line row
+    # weights its shapes by those launches
+    iters = gen_runs["relaxed"]["solve_iters"]
+    n_solves, n_iters = len(iters), sum(iters)
+    singles = n_solves + 2 * (1 + relaxed.kkt_refine_iters) * n_iters
+    k3_shapes = {("K3a", 41, 0): n_solves + n_iters,
+                 ("K3a", 28, 0): n_solves + n_iters,
+                 ("K3b", 41, 28): n_solves + n_iters,
+                 ("K3b", 41, 1): singles, ("K3b", 28, 1): singles}
+    for name in ("K3a", "K3b"):
+        check(sum(n for (kn, _, _), n in k3_shapes.items() if kn == name)
+              == gen_runs["relaxed"]["launches"][name],
+              f"{name}'s launches per shape do not add up to its count")
+    k3_ms = {}
+    for (name, k, r), n_launch in k3_shapes.items():
+        m, rhs = spd_batch(k, max(r, 1), f32)
+        m[bad_lane] = torch.eye(k, dtype=f32, device=dev)
+        l = plin.batch_cholesky_plain(m)
+        if name == "K3a":
+            kern = functools.partial(plin.batch_cholesky, m)
+            plain = functools.partial(plin.batch_cholesky_plain, m)
+            library = functools.partial(torch.linalg.cholesky_ex, m)
+        else:
+            kern = functools.partial(plin.batch_cho_solve, l, rhs)
+            plain = functools.partial(plin.batch_cho_solve_plain, l, rhs)
+            library = functools.partial(torch.cholesky_solve, rhs, l)
+        kern(), plain(), library()
+        p1 = event_ms(plain, 3)
+        t1 = event_ms(kern, REPS)
+        t2 = event_ms(kern, REPS)
+        p2 = event_ms(plain, 3)
+        lib_ms = event_ms(library, REPS)
+        k3_ms[name, k, r] = {"ms": (t1 + t2) / 2, "plain_ms": (p1 + p2) / 2,
+                             "library_ms": lib_ms,
+                             **bound(*k3_work(k, r, BATCH))}
+        emit({"phase": "times", "what": name, "k": k, "r": r or None,
+              "lanes": BATCH, "dtype": "float32", "kernel_ms": [t1, t2],
+              "plain_ms": [p1, p2], "library_ms": lib_ms,
+              "launches_relaxed_cycle": n_launch,
+              **bound(*k3_work(k, r, BATCH)), "device": smi})
+    for name, key, replaces, err in (
+            ("pallas_cholesky", "K3a", "srbx/ops/pallas_linalg.py:27",
+             k3_f64_err["K3a"]),
+            ("pallas_cho_solve", "K3b", "srbx/ops/pallas_linalg.py:62",
+             k3_f64_err["K3b"])):
+        launches = gen_runs["relaxed"]["launches"][key]
+        shapes = {s: n for s, n in k3_shapes.items() if s[0] == key}
+        mean = {f: sum(n * k3_ms[s][f] for s, n in shapes.items()) / launches
+                for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "bytes", "flops")}
+        bytes_bound = all(k3_ms[s]["bound_by"] == "bytes" for s in shapes)
+        kernels.append(dict(
+            name=name, route="cuda", source="srbx_torch/csrc/pallas_linalg.cu",
+            replaces=replaces, launches=launches, max_abs_err=err, **mean,
+            bound_by="bytes" if bytes_bound else "operations",
+            weighted_over={f"k{k}" + (f"_r{r}" if r else ""): n
+                           for (_, k, r), n in shapes.items()},
+            launches_by_path={"generic_cycle": launches}))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

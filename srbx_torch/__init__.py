@@ -9,13 +9,16 @@ imports `torch`, never `jax`, and nothing of `srbx`.
   srbx_torch.models          LIP constants, rigid-body dynamics, the A1 model
   srbx_torch.refplan         APF multi-agent reference planner
   srbx_torch.ocp, .sqp       lane-batched NMPC QP assembly and SCP rows
-  srbx_torch.mpc, .mpc_batch run_nmpc_batch: the lanes-last fused cycle
+  srbx_torch.mpc, .mpc_batch run_nmpc_batch: the lanes-last fused cycle and
+                             the generic (condensed or full-QP) cycle
   srbx_torch.motion, .agent  gait planning and the 1 kHz control tick
   srbx_torch.lowlevel        virtual constraints and the LL QP
   srbx_torch.estimation      the contact debouncer
   srbx_torch.sim             batched physics and the closed loop (run_batch)
-  srbx_torch.ops             CUDA kernels K1a, K1b, K2a, K2b with their plain
-                             PyTorch versions; Bezier curves
+  srbx_torch.ops             CUDA kernels K1a, K1b, K2a, K2b, K3a, K3b with
+                             their plain PyTorch versions; the batched IPM
+                             (qp_batch) and Ruiz equilibration (qp);
+                             Bezier curves
   srbx_torch.convert         state conversion to and from numpy / JAX types
 
 Every function takes tensors with a leading lane axis; entry points that

@@ -1,22 +1,32 @@
-"""Batched CBF-NMPC control cycle: the lanes-last fused path.
+"""Batched CBF-NMPC control cycle: `run_nmpc_batch`.
 
-Counterpart of `srbx/mpc_batch.py::run_nmpc_batch` on its production
-branch (condensed QP, simplex elimination, SQP, fused IPM). One call runs one
+Counterpart of `srbx/mpc_batch.py::run_nmpc_batch`. One call runs one
 control cycle for every lane:
 
 1. slice the reference window and pick footholds;
-2. build the condensed QP directly lanes-last. The full-space P is diagonal
-   and the full-space G, h are the same for every lane, so only diag(P), c
-   and the expansion E, e0 are built per lane (`ocp.cost`, `ocp.expansion`);
-3. solve it cold with the fused IPM (`ops.qp_fused.solve_lanes_last`);
-4. run `cfg.sqp_iters` SCP rounds: velocity and linearised CBF rows are
-   projected onto the condensed space and the QP is re-solved warm;
+2. build the QP: the full one (n 41, me 28, mi 92 with the JAX package's
+   default rows), or condensed onto (lambda, slack) through x = e0 + E v
+   (n 17, me 4), or condensed with one lambda per knot eliminated
+   (cfg.elide_simplex: n 13, me 0);
+3. solve it (cold, or warm from x0_warm);
+4. with cfg.use_sqp, run `cfg.sqp_iters` SCP rounds: velocity and
+   linearised CBF rows are appended (projected onto the condensed space
+   where the QP is condensed) and the QP is re-solved warm;
 5. fall back to holding position in any lane that went non-finite;
 6. unpack the knots and fit the per-domain Bezier.
 
-The lanes-last products are written as einsum/matmul: as broadcast
-multiply-and-sum, eager PyTorch would materialise multi-GB temporaries at
-the main path's batch (B = 131072).
+Two branches, chosen as the JAX package chooses them:
+
+* lanes-last (condensed, cfg.elide_simplex and backend "fused"): the full
+  P is diagonal and the full G, h are the same for every lane, so only
+  diag(P), c and E, e0 are built per lane and the condensed operands are
+  formed directly lanes-last for the fused IPM
+  (`ops.qp_fused.solve_lanes_last`, kernel K1a). Its products are written
+  as einsum/matmul: as broadcast multiply-and-sum, eager PyTorch would
+  materialise multi-GB temporaries at B = 131072.
+* generic (everything else): `ocp.assemble`, optionally `ocp.condense`,
+  and the batched IPM `ops.qp_batch.solve` with the given backend;
+  backend "pallas" runs the Cholesky kernels K3a and K3b.
 """
 
 from __future__ import annotations
@@ -29,6 +39,9 @@ import torch
 from srbx_torch import mpc, sqp
 from srbx_torch.config import MpcConfig, QpConfig
 from srbx_torch.ocp import (
+    assemble,
+    condense,
+    condense_rows,
     contract,
     cost,
     default_footholds,
@@ -38,7 +51,7 @@ from srbx_torch.ocp import (
     reference_window,
     unpack,
 )
-from srbx_torch.ops import qp_fused
+from srbx_torch.ops import qp_batch, qp_fused
 from srbx_torch.ops.bezier import fit_domain_bezier
 
 _log = logging.getLogger(__name__)
@@ -55,31 +68,32 @@ class LanesLastQp(NamedTuple):
     h: torch.Tensor     # (mi, B)
 
 
-def _full_precision_products():
-    # Full-f32 matrix products on the card. The JAX package measured
-    # reduced-precision products stalling the IPM at 82% of lanes converged
-    # against 100% (srbx/ops/qp_batch.py); TF32 would do the same here.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
 def effective_contacts(carry: mpc.MpcCarry, contact_ind):
     """All legs in stance before locomotion starts (gait_domain <= 1)."""
     return torch.where((carry.gait_domain <= 1)[:, None],
                        torch.ones_like(contact_ind), contact_ind)
 
 
+def _lane_state(cfg: MpcConfig, carry: mpc.MpcCarry, q_xy, dq_xy, toe_xy,
+                pr_agent, prd_agent, agent_initial):
+    """Per lane: the LIP state x0 (B, 4), the reference window (B, 4, N)
+    and the footholds (B, 2, 4), nominal before locomotion starts."""
+    x0 = torch.stack([q_xy[:, 0], dq_xy[:, 0], q_xy[:, 1], dq_xy[:, 1]], 1)
+    ref = reference_window(pr_agent, prd_agent, 0, carry.gait_domain,
+                           cfg.horizon)
+    nominal = default_footholds(agent_initial.to(q_xy.dtype))
+    foot = torch.where((carry.gait_domain <= 1)[:, None, None], nominal,
+                       toe_xy)
+    return x0, ref.to(q_xy.dtype), foot
+
+
 def condensed_qp(cfg: MpcConfig, carry: mpc.MpcCarry, q_xy, dq_xy, toe_xy,
                  ci_eff, pr_agent, prd_agent, agent_initial) -> LanesLastQp:
     """Build the condensed, simplex-eliminated QP lanes-last."""
     dtype, device = q_xy.dtype, q_xy.device
-    x0 = torch.stack([q_xy[:, 0], dq_xy[:, 0], q_xy[:, 1], dq_xy[:, 1]], 1)
-    ref = reference_window(pr_agent, prd_agent, 0, carry.gait_domain,
-                           cfg.horizon)
-    nominal = default_footholds(agent_initial.to(dtype))
-    foot = torch.where((carry.gait_domain <= 1)[:, None, None], nominal,
-                       toe_xy)
-    d, c = cost(cfg, ref.to(dtype), ci_eff)        # diag(P), c
+    x0, ref, foot = _lane_state(cfg, carry, q_xy, dq_xy, toe_xy, pr_agent,
+                                prd_agent, agent_initial)
+    d, c = cost(cfg, ref, ci_eff)                  # diag(P), c
     e, e0 = expansion(cfg, x0, foot, ci_eff, dtype=dtype)
     g_full, h_full = inequalities(cfg, dtype, device)
 
@@ -110,6 +124,7 @@ def _contract_ll(cfg: MpcConfig, x, ci_eff):
     return contract(cfg, x, ci_eff).T.contiguous()
 
 
+@qp_batch.full_f32_products()
 def run_nmpc_batch(
     cfg: MpcConfig,
     qp_cfg: QpConfig,
@@ -131,41 +146,71 @@ def run_nmpc_batch(
     """One NMPC cycle for every lane; the JAX signature without the
     TPU-only `tile` and `interpret`.
 
-    Only the lanes-last fused branch is ported: condensed=True,
-    backend="fused", cfg.elide_simplex and cfg.use_sqp. Anything else raises
-    NotImplementedError. qp_iters is the first QP's iteration count (max
-    over lanes), as in the JAX package.
+    The default backend is "fused" (the JAX package's is "pallas"), so that
+    the condensed, simplex-eliminated configuration of the benchmark and the
+    whole-body loop takes the lanes-last branch through kernel K1a. Any other
+    configuration takes the generic branch through `qp_batch.solve`:
+    "pallas" (kernels K3a and K3b) or "xla" (torch.linalg). There
+    backend="fused" reaches kernel K1b, which is built for n 43 and me 30
+    only and raises on the NMPC's shapes. qp_converged and qp_iters are the
+    first QP's, qp_iters its iteration count (max over lanes), as in the JAX
+    package. Matrix products run in full float32 (no TF32); the caller's
+    setting is restored after.
     """
     if condensed is None:
         condensed = cfg.condensed
-    if not (condensed and backend == "fused" and cfg.elide_simplex
-            and cfg.use_sqp):
-        raise NotImplementedError(
-            "srbx_torch ports only the lanes-last fused branch of "
-            "run_nmpc_batch (condensed=True, backend='fused', "
-            "cfg.elide_simplex=True, cfg.use_sqp=True); got "
-            f"condensed={condensed}, backend={backend!r}, "
-            f"elide_simplex={cfg.elide_simplex}, use_sqp={cfg.use_sqp}. "
-            "The generic and uncondensed branches and the eager batched IPM "
-            "are ROADMAP M1/M4.")
-    if qp_cfg.ruiz_iters:
-        # Mirrors the JAX package, whose lanes-last gate ignores ruiz_iters
-        # (reference fault F2 in ROADMAP.md): no equilibration is applied.
-        _log.warning("ruiz_iters=%d is ignored on the lanes-last fused path "
-                     "(reference fault F2)", qp_cfg.ruiz_iters)
-    _full_precision_products()
     dtype, device = q_xy.dtype, q_xy.device
     bsz = q_xy.shape[0]
 
     ci_eff = effective_contacts(carry, contact_ind)
-    qp = condensed_qp(cfg, carry, q_xy, dq_xy, toe_xy, ci_eff, pr_agent,
-                      prd_agent, agent_initial)
-    x0_ll = None if x0_warm is None else _contract_ll(cfg, x0_warm, ci_eff)
-    x_ll, _, _, stat1 = qp_fused.solve_lanes_last(
-        qp.P, qp.c, qp.G, qp.h, qp_cfg, x0=x0_ll)
-    qp_converged = stat1[2] > 0.5
-    qp_iters = stat1[3].max().to(torch.int32)
-    x = expand_ll(qp, x_ll)
+    if condensed and backend == "fused" and cfg.elide_simplex:
+        if qp_cfg.ruiz_iters:
+            # Mirrors the JAX package, whose lanes-last gate ignores
+            # ruiz_iters (reference fault F2 in ROADMAP.md): no equilibration
+            # is applied.
+            _log.warning("ruiz_iters=%d is ignored on the lanes-last fused "
+                         "path (reference fault F2)", qp_cfg.ruiz_iters)
+        qp = condensed_qp(cfg, carry, q_xy, dq_xy, toe_xy, ci_eff, pr_agent,
+                          prd_agent, agent_initial)
+        x0_ll = None if x0_warm is None else _contract_ll(cfg, x0_warm,
+                                                          ci_eff)
+        x_ll, _, _, stat1 = qp_fused.solve_lanes_last(
+            qp.P, qp.c, qp.G, qp.h, qp_cfg, x0=x0_ll)
+        qp_converged = stat1[2] > 0.5
+        qp_iters = stat1[3].max().to(torch.int32)
+        x = expand_ll(qp, x_ll)
+
+        def scp_solve(x, rows, rhs):
+            g_s, h_s = project_rows(qp, rows, rhs)
+            x_ll2, _, _, _ = qp_fused.solve_lanes_last(
+                qp.P, qp.c, g_s, h_s, qp_cfg, x0=_contract_ll(cfg, x, ci_eff))
+            return expand_ll(qp, x_ll2)
+    else:
+        x0, ref, foot = _lane_state(cfg, carry, q_xy, dq_xy, toe_xy,
+                                    pr_agent, prd_agent, agent_initial)
+        data = assemble(cfg, x0, ref, foot, ci_eff, dtype=dtype)
+        if condensed:
+            e_mat, e0 = expansion(cfg, x0, foot, ci_eff, dtype=dtype)
+            data_s = condense(cfg, data, e_mat, e0)
+            if x0_warm is not None:
+                x0_warm = contract(cfg, x0_warm, ci_eff)
+        else:
+            data_s = data
+        sol = qp_batch.solve(*data_s, qp_cfg, backend=backend, x0=x0_warm)
+        qp_converged, qp_iters = sol.converged, sol.iters
+        x = expand(e_mat, e0, sol.x) if condensed else sol.x
+
+        def scp_solve(x, rows, rhs):
+            if condensed:
+                rows, rhs = condense_rows(rows, rhs, e_mat, e0)
+                x_start = contract(cfg, x, ci_eff)
+            else:
+                x_start = x
+            sol = qp_batch.solve(
+                data_s.P, data_s.c, data_s.A, data_s.b,
+                torch.cat([data_s.G, rows], 1), torch.cat([data_s.h, rhs], 1),
+                qp_cfg, backend=backend, x0=x_start)
+            return expand(e_mat, e0, sol.x) if condensed else sol.x
 
     obs_xy = mpc.closest_obstacle(q_xy, pobs_real.to(dtype))[0]
     if state_other is None:
@@ -177,18 +222,15 @@ def run_nmpc_batch(
         mask = torch.tensor([1.0, 1.0 if agent_circle_eps > 0 else 0.0],
                             dtype=dtype, device=device).expand(bsz, 2)
 
-    vel_g, vel_h = sqp._vel_rows(cfg, dtype, device)
-    for _ in range(cfg.sqp_iters):
-        cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles, mask, dtype)
-        g_s, h_s = project_rows(
-            qp,
-            torch.cat([vel_g.expand(bsz, -1, -1), cbf_g], 1),
-            torch.cat([vel_h.expand(bsz, -1), cbf_h], 1),
-        )
-        x_ll2, _, _, _ = qp_fused.solve_lanes_last(
-            qp.P, qp.c, g_s, h_s, qp_cfg, x0=_contract_ll(cfg, x, ci_eff))
-        x_new = expand_ll(qp, x_ll2)
-        x = torch.where(torch.isfinite(x_new).all(-1, keepdim=True), x_new, x)
+    if cfg.use_sqp:
+        vel_g, vel_h = sqp._vel_rows(cfg, dtype, device)
+        for _ in range(cfg.sqp_iters):
+            cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles, mask, dtype)
+            x_new = scp_solve(
+                x, torch.cat([vel_g.expand(bsz, -1, -1), cbf_g], 1),
+                torch.cat([vel_h.expand(bsz, -1), cbf_h], 1))
+            x = torch.where(torch.isfinite(x_new).all(-1, keepdim=True),
+                            x_new, x)
 
     # per-lane hold-position fallback, with the stance mask the QP used
     x0s = torch.stack([q_xy[:, 0], dq_xy[:, 0], q_xy[:, 1], dq_xy[:, 1]], 1)

@@ -13,7 +13,8 @@ Every function takes and returns tensors with a leading lane axis B. The
 cost is diagonal and the inequality block is the same for every lane;
 `cost` and `inequalities` build exactly those parts, and the lanes-last
 NMPC cycle (`srbx_torch.mpc_batch`) calls them instead of `assemble`, which
-would write per-lane P, A and G that the cycle never reads.
+would write per-lane P, A and G that that branch never reads; the generic
+branch calls `assemble` and, condensed, `condense`.
 """
 
 from __future__ import annotations
@@ -335,9 +336,45 @@ def contract(cfg: MpcConfig, x_full, contact_ind=None):
     return torch.cat([lam, x_full[:, -1:]], 1)
 
 
+def condense(cfg: MpcConfig, data: OcpData, e_mat, e0) -> OcpData:
+    """Project the assembled QP onto the condensed space x = e0 + E v, per
+    lane (E (B, n, n_cond), e0 (B, n) from `expansion`).
+
+    The dynamics and COP equalities hold identically under the expansion,
+    so only the sum-lambda rows stay as equalities (me 4); with
+    cfg.elide_simplex those hold too and the condensed QP has none (me 0).
+    Cost and inequalities are exact affine substitutions.
+    """
+    nN_mN = (cfg.n_state + cfg.n_input) * cfg.horizon
+    e_t = e_mat.mT
+    p_c = e_t @ (data.P @ e_mat)
+    p_c = 0.5 * (p_c + p_c.mT)
+    c_c = _matvec(e_t, data.c + _matvec(data.P, e0))
+    if cfg.elide_simplex:
+        bsz, n_c = e_mat.shape[0], e_mat.shape[-1]
+        a_c = e_mat.new_zeros(bsz, 0, n_c)
+        b_c = e_mat.new_zeros(bsz, 0)
+    else:
+        a_keep = data.A[:, nN_mN:]
+        a_c = a_keep @ e_mat
+        b_c = data.b[:, nN_mN:] - _matvec(a_keep, e0)
+    g_c, h_c = condense_rows(data.G, data.h, e_mat, e0)
+    return OcpData(p_c, c_c, a_c, b_c, g_c, h_c)
+
+
+def condense_rows(rows, rhs, e_mat, e0):
+    """Project inequality rows (B, r, n) . x <= rhs (B, r) onto the condensed
+    space: (rows E) v <= rhs - rows . e0."""
+    return rows @ e_mat, rhs - _matvec(rows, e0)
+
+
+def _matvec(m, v):
+    return (m @ v[:, :, None])[:, :, 0]
+
+
 def expand(e_mat, e0, v):
     """Full decision vectors from condensed ones: e0 + E v, per lane."""
-    return e0 + (e_mat @ v[:, :, None])[:, :, 0]
+    return e0 + _matvec(e_mat, v)
 
 
 def default_footholds(agent_initial, dtype=None):

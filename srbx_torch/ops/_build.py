@@ -56,6 +56,9 @@ _QP_GENERAL_ARGTYPES = (
 )
 _SPD_SOLVE_ARGTYPES = [_P] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_P]
 _SPD_INVERSE_ARGTYPES = [_P] * 2 + [ctypes.c_longlong, ctypes.c_int, _P]
+_CHOLESKY_ARGTYPES = [_P] * 2 + [ctypes.c_longlong, ctypes.c_int, _P]
+_CHO_SOLVE_ARGTYPES = ([_P] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                       + [_P])
 ENTRY_POINTS = {
     "srbx_qp_fused_noeq_f32": _QP_FUSED_ARGTYPES,
     "srbx_qp_fused_noeq_f64": _QP_FUSED_ARGTYPES,
@@ -65,6 +68,10 @@ ENTRY_POINTS = {
     "srbx_spd_solve_f64": _SPD_SOLVE_ARGTYPES,
     "srbx_spd_inverse_f32": _SPD_INVERSE_ARGTYPES,
     "srbx_spd_inverse_f64": _SPD_INVERSE_ARGTYPES,
+    "srbx_pallas_cholesky_f32": _CHOLESKY_ARGTYPES,
+    "srbx_pallas_cholesky_f64": _CHOLESKY_ARGTYPES,
+    "srbx_pallas_cho_solve_f32": _CHO_SOLVE_ARGTYPES,
+    "srbx_pallas_cho_solve_f64": _CHO_SOLVE_ARGTYPES,
 }
 
 

@@ -16,7 +16,6 @@ Matrix products run in full float32 (no TF32), as the JAX package asks with
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -52,21 +51,6 @@ class LoopResult(NamedTuple):
     mpc_ok: torch.Tensor        # (B,) share of converged MPC cycles
     tau_hist: torch.Tensor      # (B, n_domains, 2) max |tau|, LL qp_ok
     est_rmse: Optional[torch.Tensor] = None   # estimation in the loop only
-
-
-@contextlib.contextmanager
-def _full_precision_products():
-    """Full float32 matrix products (no TF32) inside, the caller's setting
-    again after."""
-    precision = torch.get_float32_matmul_precision()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(precision)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _tick_batch(ll_cfg, motion_cfg, qp_cfg, model, gait, states, qs, qds,
@@ -178,7 +162,8 @@ def run_batch(
         raise NotImplementedError(
             "srbx_torch's NMPC inside run_batch is the condensed lanes-last "
             "branch: MpcConfig(condensed=True, elide_simplex=True, "
-            "use_sqp=True) (ROADMAP M1/M4)")
+            "use_sqp=True); the generic branch needs K1b instantiations "
+            "for the NMPC's shapes (ROADMAP Next 2)")
     device = torch.device("cuda" if device is None else device)
 
     def on_dev(t):
@@ -187,7 +172,7 @@ def run_batch(
     pr_agent, prd_agent, agent_initial, pobs_real = map(
         on_dev, (pr_agent, prd_agent, agent_initial, pobs_real))
     ll_qp_cfg = _resolve_ll_qp_cfg(qp_cfg, ll_qp_cfg)
-    with _full_precision_products():
+    with qp_batch.full_f32_products():
         return _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg,
                     loop, model, pr_agent, prd_agent, agent_initial,
                     pobs_real, dtype, backend, device)

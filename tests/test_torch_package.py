@@ -26,7 +26,8 @@ from srbx.sim import wholebody as jwb
 from srbx_torch import agent, config, convert, motion, mpc, mpc_batch, refplan
 from srbx_torch.estimation import contact
 from srbx_torch.models import a1
-from srbx_torch.ops import _build, qp_fused
+from srbx_torch.ocp import default_footholds
+from srbx_torch.ops import _build, qp_batch, qp_fused
 from srbx_torch.sim import closedloop, wholebody as wb
 
 torch.set_num_threads(1)
@@ -158,18 +159,75 @@ def test_wrapper_cpu_path_is_the_plain_version():
     assert out[3][2].all() and qp_fused.solve_lanes_last.launches == 0
 
 
+def _cycle_inputs(bsz=2):
+    """Small cycle inputs: lanes at rest at the origin, a straight-line
+    reference, obstacles far away."""
+    t = torch.linspace(0.0, 1.0, 40, dtype=torch.float64)
+    pr = torch.stack([t, torch.zeros_like(t)]).expand(bsz, -1, -1)
+    q = torch.zeros(bsz, 2, dtype=torch.float64)
+    return (mpc.MpcCarry(torch.zeros(bsz, dtype=torch.int32),
+                         torch.zeros(bsz, 4, dtype=torch.float64)),
+            q, q.clone(), default_footholds(q), torch.ones(bsz, 4,
+                                                           dtype=q.dtype),
+            pr, 0.2 * torch.ones_like(pr), q.clone(),
+            torch.full((bsz, 2, 20), 50.0, dtype=q.dtype))
+
+
 @pytest.mark.parametrize("change", [
-    dict(condensed=False), dict(backend="xla"), dict(backend="pallas"),
+    dict(condensed=False, backend="pallas"), dict(backend="xla"),
+    dict(backend="pallas"),
     dict(cfg=MpcConfig(elide_simplex=False, elide_box_rows=True)),
-    dict(cfg=MpcConfig(use_sqp=False, elide_simplex=True)),
-], ids=["uncondensed", "xla", "pallas", "no_elide_simplex", "no_sqp"])
-def test_unported_branches_raise(change):
+    dict(cfg=MpcConfig(use_sqp=False, elide_simplex=True,
+                       elide_box_rows=True)),
+    dict(backend="lanes"),
+], ids=["uncondensed", "xla", "pallas", "no_elide_simplex", "no_sqp",
+        "lanes"])
+def test_unported_branches_raise(change, monkeypatch):
+    """Which branch of run_nmpc_batch runs. These configurations raised
+    NotImplementedError before the generic branch was ported. Now every
+    configuration but the condensed, simplex-eliminated one on the "fused"
+    backend (with or without SQP) takes the generic branch through
+    qp_batch.solve, never the lanes-last kernel K1a; backend="fused" there
+    reaches K1b, which is built for the low-level QP's n 43 only, and
+    raises; the pure-JAX "lanes" backend is not ported and raises."""
     kw = dict(condensed=True, backend="fused")
-    cfg = change.pop("cfg", MpcConfig(use_sqp=True, elide_simplex=True,
+    cfg = change.pop("cfg", MpcConfig(use_sqp=True, sqp_iters=2,
+                                      elide_simplex=True,
                                       elide_box_rows=True))
     kw.update(change)
-    with pytest.raises(NotImplementedError, match="M1/M4"):
-        mpc_batch.run_nmpc_batch(cfg, QpConfig(), *([None] * 9), **kw)
+    calls = {"lanes_last": 0, "qp_batch": 0}
+    depth = [0]
+
+    def counting(name, fn):
+        def wrapper(*a, **k):          # outermost calls only
+            calls[name] += depth[0] == 0
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+        return wrapper
+
+    k1a = qp_fused.solve_lanes_last
+    monkeypatch.setattr(qp_fused, "solve_lanes_last",
+                        counting("lanes_last", k1a))
+    monkeypatch.setattr(qp_batch, "solve",
+                        counting("qp_batch", qp_batch.solve))
+    lanes_last = kw["condensed"] and kw["backend"] == "fused" and \
+        cfg.elide_simplex
+    solves = 1 + (cfg.sqp_iters if cfg.use_sqp else 0)
+    if kw["backend"] in ("fused", "lanes") and not lanes_last:
+        error = ValueError if kw["backend"] == "fused" else \
+            NotImplementedError
+        with pytest.raises(error):
+            mpc_batch.run_nmpc_batch(cfg, QpConfig(), *_cycle_inputs(), **kw)
+        assert calls == {"lanes_last": 0, "qp_batch": 1}
+        return
+    out = mpc_batch.run_nmpc_batch(cfg, QpConfig(), *_cycle_inputs(), **kw)
+    assert out.qp_converged.all() and torch.isfinite(out.states).all()
+    assert calls == ({"lanes_last": solves, "qp_batch": 0} if lanes_last
+                     else {"lanes_last": 0, "qp_batch": solves})
+    assert k1a.launches == 0
 
 
 def test_from_numpy_to_numpy_round_trip():

@@ -153,10 +153,29 @@ def test_general_wrapper_cpu_path_is_the_plain_version():
     dict(backend="xla"), dict(backend="pallas"),
     dict(cfg=QpConfig(ruiz_iters=5)), dict(me=0),
 ], ids=["xla", "pallas", "ruiz", "noeq"])
-def test_qp_batch_unported_options_raise(change):
+def test_qp_batch_unported_options_raise(change, monkeypatch):
+    """Where qp_batch.solve sends the low-level QP's shape. These options
+    raised NotImplementedError before the step-fused IPM was ported: "xla"
+    and "pallas" now run the step-fused IPM without calling K1b, and Ruiz
+    equilibrates and then calls K1b, each solving the QP (x = 0). An
+    inequality-only QP on the "fused" backend still reaches K1b, which is
+    built for me 30 only, and raises there."""
+    calls = []
+    fused = qp_fused.solve
+    monkeypatch.setattr(qp_fused, "solve",
+                        lambda *a, **k: calls.append(a) or fused(*a, **k))
     ops = list(_ll_shaped())
-    if change.pop("me", None) == 0:
+    noeq = change.pop("me", None) == 0
+    if noeq:
         ops[2], ops[3] = ops[2][:, :0], ops[3][:, :0]
     cfg = change.pop("cfg", QpConfig())
-    with pytest.raises(NotImplementedError):
-        qp_batch.solve(*ops, cfg, **change)
+    if noeq:
+        with pytest.raises(ValueError, match="me=30"):
+            qp_batch.solve(*ops, cfg, **change)
+        assert len(calls) == 1
+        return
+    sol = qp_batch.solve(*ops, cfg, **change)
+    assert len(calls) == (1 if cfg.ruiz_iters else 0)
+    assert sol.converged.all() and sol.y.shape == (3, 30)
+    np.testing.assert_allclose(sol.x.numpy(), 0.0, atol=1e-9)
+    assert fused.launches == 0
