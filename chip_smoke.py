@@ -23,20 +23,25 @@ Phases, each printing JSON lines:
 
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
 2. build     - compile every CUDA source in srbx_torch/csrc with nvcc (one
-               process per source) and report ptxas registers and spills;
+               process per source), report ptxas registers and spills and
+               each kernel's resident warps per SM, and fail if the float32
+               builds of K1a or K1b spill;
 3. kernel    - K1a against its plain PyTorch version on the card, on the
                cycle's own QPs (mi 28 cold, 48 and 52 warm), in float64
-               (strict config) and float32 (relaxed and strict);
+               (strict config) and float32 (relaxed and strict); then, as
+               phase "mixed", on B - 5 lanes mixing converging, infeasible
+               and one NaN lane in every block, in float64;
 4. slice     - the reference planner and one cycle at B = 131072 in float32:
                finite outputs, 3 K1a launches, and the first 512 lanes
                against the plain path in float64;
 5. times     - cycles/s (pipelined and synced, relaxed and strict) and K1a's
-               time against the plain version's;
+               time at mi 28, 48 and 52 against the plain version's;
 6. wb_kernel - K1b on random well-conditioned QPs of the LL QP's shape
                (float64, to 1e-9) and on LL QPs that the port's tick_build
                makes from stand and trot states at B = 4096 (float64 strict,
                float32 relaxed: converged share and a recomputed stopping
                test), K2a and K2b on the loop's mass and swing matrices;
+               then K1b on 4093 mixed lanes as in phase 3;
 7. wholebody - run_batch at B = 4096 float32: finite, COM height, exact
                launch counts, LL ticks/s; and the first 64 lanes in float64
                through the kernels and through the plain versions;
@@ -64,6 +69,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +138,98 @@ def k3_work(k, r, bsz, itemsize=4):
     return itemsize * bsz * (tri + 2 * k * r), bsz * 2 * k * k * r
 
 
+def k1a_work(P, c, G, h, x0, lane_iters, refine, itemsize=4):
+    """Bytes that K1a must move (P, c, G, h and x0 read once; x, z, s and
+    stat written once) and the operations its lanes' iterations need."""
+    n, bsz = c.shape
+    mi = G.shape[0]
+    read = P.numel() + c.numel() + G.numel() + h.numel() + (
+        0 if x0 is None else x0.numel())
+    nbytes = itemsize * (read + (n + 2 * mi + 8) * bsz)
+    return nbytes, ipm_flops(n, 0, mi, refine, lane_iters, cold=x0 is None)
+
+
+def k1b_work(data, sol, refine, itemsize=4):
+    """Bytes that K1b must move (P, c, A, b, G, h read once; x, y, z, s and
+    stat written once) and the operations its lanes' iterations need (the
+    regularised KKT start included)."""
+    P, c, A, b, G, h = data
+    bsz, n = c.shape
+    nbytes = itemsize * (sum(t.numel() for t in data) + sum(
+        t.numel() for t in (sol.x, sol.y, sol.z, sol.s)) + 8 * bsz)
+    return nbytes, ipm_flops(n, A.shape[1], G.shape[1], refine,
+                             sol.lane_iters, cold=True)
+
+
+def make_mixed(G, h, every=16, first=3, nan_lane=7):
+    """Mix lanes that stop at different iterations into every block, in
+    place, on batch-leading views G (B, mi, n) and h (B, mi): lanes first,
+    first + every, ... get the contradictory rows x_0 <= -1 and -x_0 <= -1
+    (infeasible: they run to max_iters), and lane nan_lane gets h = NaN in
+    its first row (non-finite from its start: the NaN freeze stops it at
+    its first iteration). The other lanes converge in a few iterations.
+    Returns the infeasible lanes."""
+    idx = torch.arange(first, G.shape[0], every, device=G.device)
+    G[idx, :2] = 0.0
+    G[idx, 0, 0] = 1.0
+    G[idx, 1, 0] = -1.0
+    h[idx, :2] = -1.0
+    h[nan_lane, 0] = float("nan")
+    return idx
+
+
+def mixed_record(kernel, lanes, xk, xp, fin_k, fin_p, conv_k, conv_p,
+                 it_k, it_p, infeasible, nan_lane, max_iters):
+    """Kernel against plain version on a ragged batch of mixed lanes (x
+    batch-leading, per-lane finiteness, converged flags and iterations)."""
+    both = conv_k & conv_p
+    nonfinite = torch.nonzero(~fin_k).flatten().tolist()
+    rec = {"lanes": lanes, "dtype": "float64", "max_iters": max_iters,
+           "max_abs_dx_converged": (xk[both] - xp[both]).abs().max().item(),
+           "converged_kernel": conv_k.double().mean().item(),
+           "converged_equal": bool((conv_k == conv_p).all()),
+           "lane_iters_equal": bool((it_k == it_p).all()),
+           "finite_equal": bool((fin_k == fin_p).all()),
+           "nonfinite_lanes_kernel": nonfinite,
+           "iters_min": it_k.min().item(), "iters_max": it_k.max().item(),
+           "infeasible_lanes_at_max_iters": bool(
+               (it_k[infeasible] == max_iters).all()),
+           "bound": ("lanes converged in both: max|dx| <= 1e-9; equal "
+                     "converged flags, per-lane iterations and finiteness; "
+                     "only the NaN lane non-finite; iterations span 1 to "
+                     "max_iters")}
+    rec["ok"] = (rec["max_abs_dx_converged"] <= 1e-9
+                 and rec["converged_equal"] and rec["lane_iters_equal"]
+                 and rec["finite_equal"] and nonfinite == [nan_lane]
+                 and rec["iters_min"] == 1 and rec["iters_max"] == max_iters
+                 and rec["infeasible_lanes_at_max_iters"])
+    emit({"phase": "mixed", "kernel": kernel, **rec})
+    check(rec["ok"], f"{kernel} on mixed ragged lanes: {rec}")
+
+
+def ptxas_summary(log: str, kernel: str):
+    """Registers, stack bytes and spill bytes of every instantiation of
+    `kernel` in an `nvcc -Xptxas -v` log."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or kernel not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.append({"entry": name, "stack": int(m.group(1)),
+                        "spill_stores": int(m.group(2)),
+                        "spill_loads": int(m.group(3))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1]["entry"] == name:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def event_ms(fn, reps):
     """Mean CUDA-event time in ms of `reps` back-to-back calls of fn."""
     start = torch.cuda.Event(enable_timing=True)
@@ -153,6 +251,96 @@ def emit(rec):
     print(json.dumps(rec), flush=True)
 
 
+def benchmark_inputs(dev):
+    """The benchmark's reference and lanes (bench.py): the planner runs on
+    the card in float32; the lanes are made with numpy, as the JAX
+    package's inputs would be. Returns (inputs, p_start, pobs)."""
+    from srbx_torch import convert, mpc, refplan
+    from srbx_torch.ocp import default_footholds
+
+    f32 = torch.float32
+    p_start = np.array([0.0, 0.5, 0.0, -0.5])
+    pobs = np.stack([np.random.default_rng(0).uniform(2.0, 8.0, 20),
+                     np.random.default_rng(1).uniform(-2.0, 2.0, 20)])
+    ref = convert.to_numpy(refplan.generate(
+        refplan.two_agent_config(loop_size=4_000),
+        torch.tensor(p_start, dtype=f32, device=dev),
+        torch.tensor(pobs, dtype=f32, device=dev), dtype=f32, device=dev))
+    check(bool(np.isfinite(ref.pr).all() and np.isfinite(ref.prd).all()),
+          "refplan.generate gave non-finite knots")
+    agent0 = p_start[:2]
+    q = agent0 + np.linspace(0, 0.01, BATCH)[:, None]
+    zeros = np.zeros(BATCH)
+    inputs = (
+        mpc.MpcCarry(np.zeros(BATCH, np.int32),
+                     np.stack([q[:, 0], zeros, q[:, 1], zeros], 1)),
+        q, np.zeros((BATCH, 2)),
+        np.tile(default_footholds(torch.tensor(agent0)).numpy(), (BATCH, 1, 1)),
+        np.tile([0.0, 1.0, 1.0, 0.0], (BATCH, 1)),
+        np.tile(ref.pr[0:2], (BATCH, 1, 1)), np.tile(ref.prd[0:2], (BATCH, 1, 1)),
+        np.tile(agent0, (BATCH, 1)), np.tile(pobs, (BATCH, 1, 1)),
+    )
+    return inputs, p_start, pobs
+
+
+def lanes_of(inputs, dev, dtype, count=BATCH):
+    """The first `count` benchmark lanes on the card in `dtype`."""
+    from srbx_torch import convert, mpc
+
+    carry, *rest = inputs
+    head = (mpc.MpcCarry(*(a[:count] for a in carry)),
+            *(a[:count] for a in rest))
+    return convert.from_numpy(head, dev, dtype)
+
+
+def nmpc_cycle_qps(cfg, strict, inputs, p_start, pobs, dev, dtype):
+    """The cycle's own QPs: the cold first solve (mi 28), and SCP solves
+    warm-started from its solution with one (mi 48) and two (mi 52) CBF
+    circles, the second the other agent's start. Returns the condensed QP
+    and [(case, G, h, x0)]."""
+    from srbx_torch import mpc, mpc_batch, sqp
+    from srbx_torch.ocp import contract
+    from srbx_torch.ops import qp_fused
+
+    carry, q, dq, toe, ci, pr, prd, a0, pob = lanes_of(inputs, dev, dtype)
+    ci_eff = mpc_batch.effective_contacts(carry, ci)
+    qp = mpc_batch.condensed_qp(cfg, carry, q, dq, toe, ci_eff, pr, prd, a0)
+    x_ll = qp_fused.solve_lanes_last_plain(qp.P, qp.c, qp.G, qp.h,
+                                           strict)[0]
+    x = mpc_batch.expand_ll(qp, x_ll)
+    x0 = contract(cfg, x, ci_eff).T.contiguous()
+    obs = mpc.closest_obstacle(q, pob)[0]
+    other = torch.tensor(p_start[2:], dtype=dtype,
+                         device=dev).expand(BATCH, 2)
+    vel_g, vel_h = sqp._vel_rows(cfg, dtype, dev)
+    cases = [("cold_mi28", qp.G, qp.h, None)]
+    for name, circles in (("warm_mi48", obs[:, None]),
+                          ("warm_mi52", torch.stack([obs, other], 1))):
+        mask = torch.ones(circles.shape[:2], dtype=dtype, device=dev)
+        cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles, mask, dtype)
+        g, h = mpc_batch.project_rows(
+            qp, torch.cat([vel_g.expand(BATCH, -1, -1), cbf_g], 1),
+            torch.cat([vel_h.expand(BATCH, -1), cbf_h], 1))
+        cases.append((name, g, h, x0))
+    return qp, cases
+
+
+def random_ll_qps(bsz, dev, dtype, seed=7, n=43, me=30, mi=45):
+    """Random QPs at the LL QP's shape, well conditioned (diagonal P in
+    [0.1, 10], a strictly feasible point), made with numpy from a seed:
+    [P, c, A, b, G, h] batch-leading."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((bsz, n, n))
+    p[:, np.arange(n), np.arange(n)] = rng.uniform(0.1, 10.0, (bsz, n))
+    a = rng.normal(size=(bsz, me, n))
+    g = rng.normal(size=(bsz, mi, n))
+    x_feas = rng.normal(size=(bsz, n))
+    return [torch.tensor(v, dtype=dtype, device=dev) for v in (
+        p, rng.normal(size=(bsz, n)), a, np.einsum("bmn,bn->bm", a, x_feas),
+        g, np.einsum("bmn,bn->bm", g, x_feas)
+        + rng.uniform(0.1, 1.0, (bsz, mi)))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -165,8 +353,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from srbx_torch.config import MpcConfig, QpConfig
-    from srbx_torch import convert, mpc, mpc_batch, refplan, sqp
-    from srbx_torch.ocp import contract, default_footholds
+    from srbx_torch import convert, mpc, mpc_batch, refplan
     from srbx_torch.ops import _build, qp_fused
 
     dev = torch.device("cuda", 0)
@@ -193,8 +380,31 @@ def main() -> int:
     ptxas = [ln.strip() for ln in (log.read_text().splitlines()
                                    if log.is_file() else [])
              if "entry function" in ln or "registers" in ln or "spill" in ln]
+    # the fused IPMs' float32 builds must not spill (the "If" in the
+    # mangled name is the float instantiation)
+    k1_ptxas = {name: ptxas_summary(log.read_text(), name) for name in (
+        "qp_fused_noeq_kernel", "qp_general_kernel")}
+    f32_spills = sum(e["spill_stores"] + e["spill_loads"]
+                     for es in k1_ptxas.values() for e in es
+                     if "kernelIf" in e["entry"])
+    warps = {f"{k}_{d}_mi{mi}": qp_fused.resident_warps(dt, mi, k == "K1b")
+             for k, mis in (("K1a", (28, 48, 52)), ("K1b", (45,)))
+             for d, dt in (("f32", torch.float32), ("f64", torch.float64))
+             for mi in mis}
+    # the other kernels at their paths' shapes, float32
+    for name, fn, shapes in (
+            ("K2", _build.load().srbx_spd_resident_warps,
+             ((18, 1), (18, 18), (12, 12))),
+            ("K3", _build.load().srbx_pallas_resident_warps,
+             ((41, 0), (28, 0), (41, 28), (41, 1), (28, 1)))):
+        for k, r in shapes:
+            warps[f"{name}_f32_k{k}_r{r}"] = fn(0, k, r)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(ROOT)), "ptxas": ptxas})
+          "library": str(lib.relative_to(ROOT)), "ptxas": ptxas,
+          "k1_ptxas": k1_ptxas, "k1_f32_spill_bytes": f32_spills,
+          "resident_warps_per_sm": warps})
+    check(f32_spills == 0 and all(k1_ptxas.values()),
+          f"the fused IPMs' float32 builds spill: {k1_ptxas}")
 
     cfg = MpcConfig(use_sqp=True, sqp_iters=2, elide_box_rows=True,
                     elide_simplex=True)
@@ -204,40 +414,13 @@ def main() -> int:
     strict = QpConfig(abstol=1e-6, reltol=1e-6, reg_primal=1e-6,
                       reg_dual=1e-6, max_iters=25)
 
-    # the benchmark's reference and lanes (bench.py): the planner runs on
-    # the card in float32; the lanes are made with numpy and handed over
-    # with convert.from_numpy, as the JAX package's inputs would be
     f32 = torch.float32
-    p_start = np.array([0.0, 0.5, 0.0, -0.5])
-    pobs = np.stack([np.random.default_rng(0).uniform(2.0, 8.0, 20),
-                     np.random.default_rng(1).uniform(-2.0, 2.0, 20)])
     t0 = time.perf_counter()
-    ref = convert.to_numpy(refplan.generate(
-        refplan.two_agent_config(loop_size=4_000),
-        torch.tensor(p_start, dtype=f32, device=dev),
-        torch.tensor(pobs, dtype=f32, device=dev), dtype=f32, device=dev))
+    inputs, p_start, pobs = benchmark_inputs(dev)
     refplan_s = time.perf_counter() - t0
-    check(bool(np.isfinite(ref.pr).all() and np.isfinite(ref.prd).all()),
-          "refplan.generate gave non-finite knots")
-    agent0 = p_start[:2]
-    q = agent0 + np.linspace(0, 0.01, BATCH)[:, None]
-    zeros = np.zeros(BATCH)
-    inputs = (
-        mpc.MpcCarry(np.zeros(BATCH, np.int32),
-                     np.stack([q[:, 0], zeros, q[:, 1], zeros], 1)),
-        q, np.zeros((BATCH, 2)),
-        np.tile(default_footholds(torch.tensor(agent0)).numpy(), (BATCH, 1, 1)),
-        np.tile([0.0, 1.0, 1.0, 0.0], (BATCH, 1)),
-        np.tile(ref.pr[0:2], (BATCH, 1, 1)), np.tile(ref.prd[0:2], (BATCH, 1, 1)),
-        np.tile(agent0, (BATCH, 1)), np.tile(pobs, (BATCH, 1, 1)),
-    )
 
     def lanes(dtype, count=BATCH):
-        """The first `count` benchmark lanes on the card in `dtype`."""
-        carry, *rest = inputs
-        head = (mpc.MpcCarry(*(a[:count] for a in carry)),
-                *(a[:count] for a in rest))
-        return convert.from_numpy(head, dev, dtype)
+        return lanes_of(inputs, dev, dtype, count)
 
     def cycle(args, qp_cfg, **kw):
         return mpc_batch.run_nmpc_batch(cfg, qp_cfg, *args, condensed=True,
@@ -245,31 +428,7 @@ def main() -> int:
 
     # ------------------------- 3. kernel vs plain ------------------------- #
     def cycle_qps(dtype):
-        """The cycle's own QPs: the cold first solve (mi 28), and SCP
-        solves warm-started from its solution with one (mi 48) and two
-        (mi 52) CBF circles, the second the other agent's start."""
-        carry, q, dq, toe, ci, pr, prd, a0, pob = lanes(dtype)
-        ci_eff = mpc_batch.effective_contacts(carry, ci)
-        qp = mpc_batch.condensed_qp(cfg, carry, q, dq, toe, ci_eff, pr, prd,
-                                    a0)
-        x_ll = qp_fused.solve_lanes_last_plain(qp.P, qp.c, qp.G, qp.h,
-                                               strict)[0]
-        x = mpc_batch.expand_ll(qp, x_ll)
-        x0 = contract(cfg, x, ci_eff).T.contiguous()
-        obs = mpc.closest_obstacle(q, pob)[0]
-        other = torch.tensor(p_start[2:], dtype=dtype,
-                             device=dev).expand(BATCH, 2)
-        vel_g, vel_h = sqp._vel_rows(cfg, dtype, dev)
-        cases = [("cold_mi28", qp.G, qp.h, None)]
-        for name, circles in (("warm_mi48", obs[:, None]),
-                              ("warm_mi52", torch.stack([obs, other], 1))):
-            mask = torch.ones(circles.shape[:2], dtype=dtype, device=dev)
-            cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles, mask, dtype)
-            g, h = mpc_batch.project_rows(
-                qp, torch.cat([vel_g.expand(BATCH, -1, -1), cbf_g], 1),
-                torch.cat([vel_h.expand(BATCH, -1), cbf_h], 1))
-            cases.append((name, g, h, x0))
-        return qp, cases
+        return nmpc_cycle_qps(cfg, strict, inputs, p_start, pobs, dev, dtype)
 
     # In float32 the kernel and its plain version round differently. Where
     # all four legs stand (every benchmark lane: domain 0) the condensed P
@@ -285,6 +444,8 @@ def main() -> int:
                            (f32, (("relaxed", relaxed),
                                             ("strict", strict)))):
         qp, cases = cycle_qps(dtype)
+        if dtype == torch.float64:
+            qp64, cases64 = qp, cases
         for cfg_name, qp_cfg in configs:
             for case, G, h, x0 in cases:
                 xk, zk, sk, stk = qp_fused.solve_lanes_last(
@@ -333,6 +494,28 @@ def main() -> int:
                 check(ok, f"kernel disagrees with its plain version: {rec}")
     check(qp_fused.solve_lanes_last.launches - launches0 == n_compared,
           "the kernel's launch counter did not advance once per solve")
+
+    # A ragged batch (B - 5 lanes: the last block part full) whose blocks
+    # mix lanes that converge in a few iterations, infeasible lanes that run
+    # to max_iters and one lane that is non-finite from its start. Each
+    # lane stops on its own; none may change another's result.
+    mixed_cfg = QpConfig(abstol=1e-6, reltol=1e-6, reg_primal=1e-6,
+                         reg_dual=1e-6, max_iters=12)
+    cut = BATCH - 5
+    _, g_mix, h_mix, x_mix = cases64[1]
+    ops = [t[..., :cut].clone(memory_format=torch.contiguous_format)
+           for t in (qp64.P, qp64.c, g_mix, h_mix)]
+    infeasible = make_mixed(ops[2].permute(2, 0, 1), ops[3].T)
+    x_mix = x_mix[:, :cut].contiguous()
+    outs = [fn(*ops, mixed_cfg, x0=x_mix) for fn in (
+        qp_fused.solve_lanes_last, qp_fused.solve_lanes_last_plain)]
+    torch.cuda.synchronize()
+    fin = [torch.isfinite(x).all(0) & torch.isfinite(z).all(0)
+           & torch.isfinite(sl).all(0) for x, z, sl, _ in outs]
+    mixed_record("K1a", cut, outs[0][0].T, outs[1][0].T, *fin,
+                 outs[0][3][2] > 0.5, outs[1][3][2] > 0.5, outs[0][3][3],
+                 outs[1][3][3], infeasible, 7, mixed_cfg.max_iters)
+    del qp64, cases64, ops, outs
 
     # ------------------------------ 4. slice ------------------------------ #
     args = lanes(f32)
@@ -420,7 +603,7 @@ def main() -> int:
 
     qp, cases = cycle_qps(f32)
     k1_ms, k1_stat = {}, {}
-    for case, G, h, x0 in cases[:2]:                # mi 28 cold, mi 48 warm
+    for case, G, h, x0 in cases:                # mi 28 cold, mi 48 / 52 warm
         def kern():
             return qp_fused.solve_lanes_last(qp.P, qp.c, G, h, relaxed,
                                              x0=x0)
@@ -442,21 +625,23 @@ def main() -> int:
               "config": "relaxed", "kernel_ms": [k1, k2],
               "plain_ms": [p1, p2], "device": smi})
 
-    ms, plain_ms = k1_ms["warm_mi48"]
-    _, g48, h48, x48 = cases[1]
-    k1a_bytes = 4 * (qp.P.numel() + qp.c.numel() + g48.numel() + h48.numel()
-                     + x48.numel() + qp.c.numel() + 2 * h48.numel()
-                     + 8 * BATCH)
-    k1a_flops = ipm_flops(13, 0, g48.shape[0], relaxed.kkt_refine_iters,
-                          k1_stat["warm_mi48"][3], cold=False)
+    # the row reports the cycle's warm SCP solve (mi 48), and each case
+    k1a_cases = {}
+    for case, G, h, x0 in cases:
+        k1a_cases[case] = dict(
+            mi=G.shape[0], ms=k1_ms[case][0], plain_ms=k1_ms[case][1],
+            **bound(*k1a_work(qp.P, qp.c, G, h, x0, k1_stat[case][3],
+                              relaxed.kkt_refine_iters)))
+    main_case = dict(k1a_cases["warm_mi48"])
+    del main_case["mi"]
     kernels = [dict(
         name="qp_fused_noeq", route="cuda",
         source="srbx_torch/csrc/qp_fused.cu",
         replaces="srbx/ops/qp_fused.py:94",
         launches=slice_launches, max_abs_err=f64_max_dx,
-        ms=ms, plain_ms=plain_ms, library_ms=None,
+        **main_case, library_ms=None,
         launches_by_path={"nmpc_cycle": slice_launches},
-        **bound(k1a_bytes, k1a_flops))]
+        by_case=k1a_cases)]
 
     # ------------------- 6. whole-body kernels vs plain ------------------- #
     from srbx_torch import agent, motion
@@ -577,19 +762,7 @@ def main() -> int:
     # feasible point), where the kernel and its plain version differ by
     # rounding only: max|dx| <= 1e-9 with equal flags and per-lane
     # iterations, in float64.
-    rng = np.random.default_rng(7)
-    n_ll, me_ll, mi_ll = 43, 30, 45
-    p_rand = np.zeros((WB_BATCH, n_ll, n_ll))
-    p_rand[:, np.arange(n_ll), np.arange(n_ll)] = rng.uniform(
-        0.1, 10.0, (WB_BATCH, n_ll))
-    a_rand = rng.normal(size=(WB_BATCH, me_ll, n_ll))
-    g_rand = rng.normal(size=(WB_BATCH, mi_ll, n_ll))
-    x_feas = rng.normal(size=(WB_BATCH, n_ll))
-    rand_qp = [torch.tensor(a, dtype=torch.float64, device=dev) for a in (
-        p_rand, rng.normal(size=(WB_BATCH, n_ll)), a_rand,
-        np.einsum("bmn,bn->bm", a_rand, x_feas), g_rand,
-        np.einsum("bmn,bn->bm", g_rand, x_feas)
-        + rng.uniform(0.1, 1.0, (WB_BATCH, mi_ll)))]
+    rand_qp = random_ll_qps(WB_BATCH, dev, torch.float64)
 
     wb_counts = (qp_fused.solve, spd.solve, spd.inverse)
     counts0 = [k.launches for k in wb_counts]
@@ -674,6 +847,20 @@ def main() -> int:
                 check(rec["ok"], f"SPD kernel disagrees: {rec}")
     check([k.launches - c for k, c in zip(wb_counts, counts0)] == [5, 4, 8],
           "the whole-body kernels' counters did not advance once per call")
+
+    # K1b on a ragged batch (B - 3 = 4093 lanes) of random QPs of the LL
+    # QP's shape mixing converging, infeasible and one non-finite lane, as for K1a
+    mix_lanes = WB_BATCH - 3
+    mix_qp = random_ll_qps(mix_lanes, dev, torch.float64, seed=8)
+    infeasible = make_mixed(mix_qp[4], mix_qp[5])
+    sols = [fn(*mix_qp, mixed_cfg) for fn in (qp_fused.solve,
+                                              qp_fused.solve_plain)]
+    torch.cuda.synchronize()
+    fin = [torch.isfinite(torch.cat([o.x, o.y, o.z, o.s], 1)).all(1)
+           for o in sols]
+    mixed_record("K1b", mix_lanes, sols[0].x, sols[1].x, *fin,
+                 sols[0].converged, sols[1].converged, sols[0].lane_iters,
+                 sols[1].lane_iters, infeasible, 7, mixed_cfg.max_iters)
 
     # ------------------------- 7. the whole-body loop ----------------------- #
     def run_wb(dtype, lanes, loop):
@@ -775,11 +962,7 @@ def main() -> int:
         return sum(t.numel() for t in ts)
 
     bsz = WB_BATCH
-    k1b_bytes = 4 * (elems(*data32) + elems(sk.x, sk.y, sk.z, sk.s)
-                     + 8 * bsz)
-    k1b_flops = ipm_flops(43, 30, data32.G.shape[1],
-                          wb_relaxed.kkt_refine_iters, sk.lane_iters,
-                          cold=True)
+    k1b_bytes, k1b_flops = k1b_work(data32, sk, wb_relaxed.kkt_refine_iters)
     k2a_bytes = 4 * (elems(d32) + 2 * elems(rhs32))
     k2b_bytes = 4 * 2 * elems(d32)
     k = 18

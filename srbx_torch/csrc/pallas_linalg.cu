@@ -225,3 +225,40 @@ extern "C" int srbx_pallas_cho_solve_f64(const void* L, const void* R, void* X, 
                                          int k, int r, void* stream) {
   return launch_cho_solve<double>(L, R, X, batch, k, r, stream);
 }
+
+namespace {
+
+// Warps resident per SM for a launch of K3a (r = 0) or K3b at (k, r).
+template <typename T>
+int resident_warps(int k, int r) {
+  const size_t lane_bytes = sizeof(T) * (size_t)k * (k + r);
+  const int warps = warps_per_block(lane_bytes);
+  const size_t smem = lane_bytes * warps;
+  int blocks = 0;
+  cudaError_t err = cudaSuccess;
+  if (r == 0) {
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(cholesky_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cholesky_kernel<T>,
+                                                          kWarp * warps, smem);
+  } else {
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(cho_solve_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cho_solve_kernel<T>,
+                                                          kWarp * warps, smem);
+  }
+  return err == cudaSuccess ? blocks * warps : -1;
+}
+
+}  // namespace
+
+// The same in f32 or, with f64 != 0, double; -1 on a shape the kernels
+// refuse.
+extern "C" int srbx_pallas_resident_warps(int f64, int k, int r) {
+  if (k < 1 || k > kMaxK || r < 0 || r > kMaxR) return -1;
+  return f64 ? resident_warps<double>(k, r) : resident_warps<float>(k, r);
+}

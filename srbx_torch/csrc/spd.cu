@@ -162,3 +162,16 @@ extern "C" int srbx_spd_inverse_f32(const void* D, void* X, long long batch, int
 extern "C" int srbx_spd_inverse_f64(const void* D, void* X, long long batch, int k, void* stream) {
   return launch<double>(D, nullptr, X, batch, k, k, 1, stream);
 }
+
+// Warps resident per SM for a launch at (k, r) (f64 != 0: double), or -1.
+extern "C" int srbx_spd_resident_warps(int f64, int k, int r) {
+  if (k < 1 || k > kMaxK || r < 1 || r > kMaxR) return -1;
+  const size_t smem = (f64 ? sizeof(double) : sizeof(float)) * (size_t)kWarpsPerBlock * k * (k + r);
+  int blocks = 0;
+  const cudaError_t err =
+      f64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, spd_kernel<double>,
+                                                          kWarp * kWarpsPerBlock, smem)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, spd_kernel<float>,
+                                                          kWarp * kWarpsPerBlock, smem);
+  return err == cudaSuccess ? blocks * kWarpsPerBlock : -1;
+}

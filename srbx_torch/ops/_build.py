@@ -59,19 +59,25 @@ _SPD_INVERSE_ARGTYPES = [_P] * 2 + [ctypes.c_longlong, ctypes.c_int, _P]
 _CHOLESKY_ARGTYPES = [_P] * 2 + [ctypes.c_longlong, ctypes.c_int, _P]
 _CHO_SOLVE_ARGTYPES = ([_P] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
                        + [_P])
+_RESIDENT_WARPS_ARGTYPES = [ctypes.c_int, ctypes.c_int]   # f64, mi
+_RESIDENT_WARPS_KR_ARGTYPES = [ctypes.c_int] * 3          # f64, k, r
 ENTRY_POINTS = {
     "srbx_qp_fused_noeq_f32": _QP_FUSED_ARGTYPES,
     "srbx_qp_fused_noeq_f64": _QP_FUSED_ARGTYPES,
+    "srbx_qp_fused_noeq_resident_warps": _RESIDENT_WARPS_ARGTYPES,
     "srbx_qp_general_f32": _QP_GENERAL_ARGTYPES,
     "srbx_qp_general_f64": _QP_GENERAL_ARGTYPES,
+    "srbx_qp_general_resident_warps": _RESIDENT_WARPS_ARGTYPES,
     "srbx_spd_solve_f32": _SPD_SOLVE_ARGTYPES,
     "srbx_spd_solve_f64": _SPD_SOLVE_ARGTYPES,
     "srbx_spd_inverse_f32": _SPD_INVERSE_ARGTYPES,
     "srbx_spd_inverse_f64": _SPD_INVERSE_ARGTYPES,
+    "srbx_spd_resident_warps": _RESIDENT_WARPS_KR_ARGTYPES,
     "srbx_pallas_cholesky_f32": _CHOLESKY_ARGTYPES,
     "srbx_pallas_cholesky_f64": _CHOLESKY_ARGTYPES,
     "srbx_pallas_cho_solve_f32": _CHO_SOLVE_ARGTYPES,
     "srbx_pallas_cho_solve_f64": _CHO_SOLVE_ARGTYPES,
+    "srbx_pallas_resident_warps": _RESIDENT_WARPS_KR_ARGTYPES,
 }
 
 

@@ -8,15 +8,15 @@ package's fused Pallas kernel (`srbx/ops/qp_fused.py::_make_kernel`) for
 
 * `solve_lanes_last` (K1a, `noeq=True`, no A rows): operands lanes-last,
   P (n, n, B), c (n, B), G (mi, n, B), h (mi, B), x0 (n, B); the NMPC
-  cycle's path. CUDA kernel `srbx_torch/csrc/qp_fused.cu`, one thread per
-  lane: G is re-read from device memory about eight times an iteration and
-  is far larger than the L2 at the main path's batch, so it is streamed
-  coalesced (lane-contiguous) and every per-lane quantity stays in
-  registers or local memory.
+  cycle's path. CUDA kernel `srbx_torch/csrc/qp_fused.cu`, a half-warp
+  per lane, 16 lanes per block: the block copies its lanes' operands into
+  shared memory once (coalesced over neighbouring lanes), each thread owns
+  rows of G with their iterates in registers, and x, z, s and stat are
+  written back once.
 * `solve` (K1b, `noeq=False`): operands batch-leading (B, ...), the JAX
   package's `qp_fused.solve`; the whole-body loop's LL QP. CUDA kernel
-  `srbx_torch/csrc/qp_general.cu`, one warp per lane with the lane's state
-  in shared memory.
+  `srbx_torch/csrc/qp_general.cu`, two warps per lane (one lane per
+  block) with the lane's operands and factors in shared memory.
 
 Beside each kernel, a plain PyTorch version with the same semantics
 (`solve_lanes_last_plain`, `solve_plain`, both through `_ipm_plain`). The
@@ -41,6 +41,17 @@ from srbx_torch.config import QpConfig
 N_COND = 13          # the condensed NMPC QP's size, the kernel's template N
 MAX_MI = 64          # the kernel's per-lane row capacity (kMaxMi)
 STAT_ROWS = 8        # res, gap/mi, converged, iterations, 4 zero rows
+
+
+def resident_warps(dtype, mi, general=False):
+    """Warps of K1a (or K1b with `general`) resident on one SM of the card
+    at mi rows, from the CUDA occupancy calculator."""
+    from srbx_torch.ops import _build
+
+    lib = _build.load()
+    fn = (lib.srbx_qp_general_resident_warps if general
+          else lib.srbx_qp_fused_noeq_resident_warps)
+    return fn(int(dtype == torch.float64), mi)
 
 
 def _mv(m, v):

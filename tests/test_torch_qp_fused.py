@@ -125,3 +125,43 @@ def test_plain_ipm_matches_pallas_interpret(nmpc_qps, lanes, case, config):
     np.testing.assert_array_equal(stat[2].numpy(), jstat[2])
     assert stat[3].max().item() == jstat[3].max()
     assert stat[2].sum().item() > B // 2          # the cases do converge
+
+
+# ---- the wrapper's checks (no JAX) ---- #
+
+def _ll_qp(bsz, mi, dtype=torch.float64, seed=5):
+    """Random strictly feasible lanes-last QPs (n 13) made with numpy."""
+    rng = np.random.default_rng(seed)
+    n = qp_fused.N_COND
+    p = np.zeros((n, n, bsz))
+    p[np.arange(n), np.arange(n)] = rng.uniform(0.5, 2.0, (n, bsz))
+    g = rng.normal(size=(mi, n, bsz))
+    x_feas = rng.normal(size=(n, bsz))
+    h = np.einsum("mnb,nb->mb", g, x_feas) + rng.uniform(0.1, 1.0, (mi, bsz))
+    return [torch.tensor(a, dtype=dtype) for a in
+            (p, rng.normal(size=(n, bsz)), g, h)]
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    (lambda o: (o[0], o[1], torch.zeros(65, 13, 3, dtype=o[1].dtype),
+                torch.zeros(65, 3, dtype=o[1].dtype)), ValueError, "mi"),
+    (lambda o: tuple(t.half() for t in o), TypeError, "dtype"),
+    (lambda o: (o[0].float(),) + tuple(o[1:]), TypeError, "P is"),
+    (lambda o: (o[0], o[1], o[2].transpose(1, 2).contiguous()
+                .transpose(1, 2), o[3]), ValueError, "contiguous"),
+    (lambda o: (o[0][:12, :12], o[1][:12], o[2][:, :12], o[3]), ValueError,
+     "n=13"),
+    (lambda o: tuple(t.to("meta") for t in o), ValueError, "device"),
+    (lambda o: (o[0], o[1][:, 0], o[2], o[3]), ValueError, "c must be"),
+    (lambda o: (o[0], o[1], o[2][:, :, 0], o[3]), ValueError, "G must be"),
+    (lambda o: (o[0][..., :2], o[1], o[2], o[3]), ValueError, "P must be"),
+    (lambda o: (o[0], o[1], o[2], o[3][:3]), ValueError, "h must be"),
+    (lambda o: (*o, o[1][:, :2].contiguous()), ValueError, "x0 must be"),
+], ids=["mi65", "dtype", "mixed", "strided", "n", "device", "c", "G", "P",
+        "h", "x0"])
+def test_lanes_last_wrapper_rejects_what_the_kernel_does_not_take(
+        bad, error, match):
+    ops = bad(_ll_qp(3, 4))
+    with pytest.raises(error, match=match):
+        qp_fused.solve_lanes_last(*ops[:4], CONFIGS["strict"], *ops[4:])
+    assert qp_fused.solve_lanes_last.launches == 0

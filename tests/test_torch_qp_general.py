@@ -127,12 +127,14 @@ def _ll_shaped(dtype=torch.float64, bsz=3, mi=45):
     (lambda o: (o[0], o[1].float()) + o[2:], TypeError),           # mixed
     (lambda o: (o[0][:2],) + o[1:], ValueError),                   # shapes
     (lambda o: tuple(t.to("meta") for t in o), ValueError),        # device
-], ids=["n", "me", "mi", "dtype", "contiguous", "mixed", "shape", "device"])
+    (lambda o: o + (o[1][:, :42].contiguous(),), ValueError),      # x0
+], ids=["n", "me", "mi", "dtype", "contiguous", "mixed", "shape", "device",
+        "x0"])
 def test_general_wrapper_rejects_what_the_kernel_does_not_take(bad, error):
     ops = bad(_ll_shaped())
     ops = tuple(torch.as_tensor(a) for a in ops)
     with pytest.raises(error):
-        qp_fused.solve(*ops, QpConfig())
+        qp_fused.solve(*ops[:6], QpConfig(), *ops[6:])
     assert qp_fused.solve.launches == 0
 
 
