@@ -23,9 +23,9 @@ Phases, each printing JSON lines:
 
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
 2. build     - compile every CUDA source in srbx_torch/csrc with nvcc (one
-               process per source), report ptxas registers and spills and
-               each kernel's resident warps per SM, and fail if the float32
-               builds of K1a or K1b spill;
+               process per source), report ptxas registers and spills, each
+               kernel's resident warps per SM and K3's launch geometry, and
+               fail if the float32 builds of K1a, K1b, K3a or K3b spill;
 3. kernel    - K1a against its plain PyTorch version on the card, on the
                cycle's own QPs (mi 28 cold, 48 and 52 warm), in float64
                (strict config) and float32 (relaxed and strict); then, as
@@ -47,9 +47,11 @@ Phases, each printing JSON lines:
                through the kernels and through the plain versions;
 8. wb_times  - K1b, K2a and K2b at the loop's shapes against their plain
                versions and, for K2, one PyTorch call (library_ms);
-9. k3        - K3a and K3b against their plain versions on random SPD
-               matrices with one indefinite lane, at the generic cycle's
-               (k, r), in float64 and float32;
+9. k3        - K3a and K3b against their plain versions, bitwise on the
+               good lanes, on random SPD matrices with one indefinite lane,
+               at the generic cycle's (k, r), then on a ragged batch
+               (B - 3 lanes) at the path's (k, r) and at the edge shapes
+               k 1, 33, 64 with r 1, 3, 32, 64, in float64 and float32;
 10. generic_cycle - one generic cycle at B = 131072 float32, relaxed and
                strict: finite, exact K3 launch counts, converged share; and
                the first 512 lanes in float64 through the kernels and
@@ -380,13 +382,18 @@ def main() -> int:
     ptxas = [ln.strip() for ln in (log.read_text().splitlines()
                                    if log.is_file() else [])
              if "entry function" in ln or "registers" in ln or "spill" in ln]
-    # the fused IPMs' float32 builds must not spill (the "If" in the
-    # mangled name is the float instantiation)
+    # the fused IPMs' and K3's float32 builds must not spill (the "If" in
+    # the mangled name is the float instantiation)
     k1_ptxas = {name: ptxas_summary(log.read_text(), name) for name in (
         "qp_fused_noeq_kernel", "qp_general_kernel")}
+    k3_ptxas = {name: ptxas_summary(log.read_text(), name) for name in (
+        "cholesky_kernel", "cho_solve1_kernel", "cho_solve_kernel")}
     f32_spills = sum(e["spill_stores"] + e["spill_loads"]
                      for es in k1_ptxas.values() for e in es
                      if "kernelIf" in e["entry"])
+    k3_f32_spills = sum(e["spill_stores"] + e["spill_loads"]
+                        for es in k3_ptxas.values() for e in es
+                        if "kernelIf" in e["entry"])
     warps = {f"{k}_{d}_mi{mi}": qp_fused.resident_warps(dt, mi, k == "K1b")
              for k, mis in (("K1a", (28, 48, 52)), ("K1b", (45,)))
              for d, dt in (("f32", torch.float32), ("f64", torch.float64))
@@ -399,12 +406,20 @@ def main() -> int:
              ((41, 0), (28, 0), (41, 28), (41, 1), (28, 1)))):
         for k, r in shapes:
             warps[f"{name}_f32_k{k}_r{r}"] = fn(0, k, r)
+    from srbx_torch.ops import pallas_linalg as plin
+    k3_geometry = {f"{d}_k{k}_r{r}": plin.launch_geometry(dt, k, r, BATCH)
+                   for d, dt in (("f32", torch.float32),
+                                 ("f64", torch.float64))
+                   for k, r in ((41, 0), (28, 0), (41, 28), (41, 1), (28, 1))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.relative_to(ROOT)), "ptxas": ptxas,
           "k1_ptxas": k1_ptxas, "k1_f32_spill_bytes": f32_spills,
-          "resident_warps_per_sm": warps})
+          "k3_ptxas": k3_ptxas, "k3_f32_spill_bytes": k3_f32_spills,
+          "resident_warps_per_sm": warps, "k3_geometry": k3_geometry})
     check(f32_spills == 0 and all(k1_ptxas.values()),
           f"the fused IPMs' float32 builds spill: {k1_ptxas}")
+    check(k3_f32_spills == 0 and all(k3_ptxas.values()),
+          f"K3a or K3b's float32 builds spill: {k3_ptxas}")
 
     cfg = MpcConfig(use_sqp=True, sqp_iters=2, elide_box_rows=True,
                     elide_simplex=True)
@@ -987,70 +1002,78 @@ def main() -> int:
     kernels[0]["launches_by_path"]["wholebody"] = wb_launches["K1a"]
 
     # ------------------------ 9. K3 kernels vs plain ----------------------- #
-    from srbx_torch.ops import pallas_linalg as plin, qp_batch
+    from srbx_torch.ops import qp_batch
 
     gen = torch.Generator(device=dev).manual_seed(11)
     bad_lane = 7
 
-    def spd_batch(k, r, dtype):
-        """Well-conditioned SPD matrices (B, k, k) made on the card from a
-        seed, lane `bad_lane` indefinite, and right-hand sides (B, k, r)."""
-        a = torch.randn(BATCH, k, k, generator=gen, device=dev, dtype=dtype)
+    def spd_batch(k, r, dtype, n_lanes=BATCH):
+        """Well-conditioned SPD matrices (n_lanes, k, k) made on the card
+        from a seed, lane `bad_lane` indefinite (a diagonal entry -1), and
+        right-hand sides (n_lanes, k, r)."""
+        a = torch.randn(n_lanes, k, k, generator=gen, device=dev,
+                        dtype=dtype)
         m = a @ a.mT / k + torch.eye(k, dtype=dtype, device=dev)
         m[bad_lane, k // 2, k // 2] = -1.0
-        rhs = torch.randn(BATCH, k, r, generator=gen, device=dev,
+        rhs = torch.randn(n_lanes, k, r, generator=gen, device=dev,
                           dtype=dtype)
         return m, rhs
 
-    k3_counts = (plin.batch_cholesky, plin.batch_cho_solve)
-    counts0 = [k.launches for k in k3_counts]
-    k3_f64_err = {"K3a": 0.0, "K3b": 0.0}
-    good = torch.ones(BATCH, dtype=torch.bool, device=dev)
-    good[bad_lane] = False
-    n_k3 = 0
-    # the generic cycle's (k, r): M^-1 A' (41, 28), M and S solves (41, 1)
-    # and (28, 1); the condensed forms' (17, 4) and (13, 1)
-    for dtype in (torch.float64, f32):
+    def compare(rec, name, got, want, good, dtype):
+        err = (got[good] - want[good]).abs().max().item()
+        rec[f"{name}_max_abs_err"] = err
+        rec[f"{name}_max_rel_err"] = err / want[good].abs().max().item()
+        rec[f"{name}_bitwise_equal"] = bool(torch.equal(got[good],
+                                                        want[good]))
+        rec[f"{name}_bad_lane_nonfinite"] = not bool(
+            torch.isfinite(got[bad_lane]).all())
+        rec[f"{name}_other_lanes_finite"] = bool(
+            torch.isfinite(got[good]).all())
+        if dtype == torch.float64:
+            k3_f64_err[name] = max(k3_f64_err[name], err)
+
+    def k3_cases(n_lanes, k, rs, dtype):
+        """K3a on n_lanes k x k matrices, then K3b against its factor for
+        each r in rs: one record per (k, r)."""
         bound_rel = 1e-12 if dtype == torch.float64 else 1e-5
-        for k, r in ((41, 28), (41, 1), (28, 1), (17, 4), (13, 1)):
-            m, rhs = spd_batch(k, r, dtype)
-            lk, lp = plin.batch_cholesky(m), plin.batch_cholesky_plain(m)
+        m, _ = spd_batch(k, 1, dtype, n_lanes)
+        good = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+        good[bad_lane] = False
+        # the kernels read only the lower triangles: NaN above the
+        # diagonal of M and of L changes nothing
+        upper = torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
+        lp = plin.batch_cholesky_plain(m)
+        lk = plin.batch_cholesky(m)
+        lk_nan = plin.batch_cholesky(m.masked_fill(upper, float("nan")))
+        torch.cuda.synchronize()
+        n_k3[0] += 2
+        base = {"phase": "k3", "dtype": str(dtype), "lanes": n_lanes, "k": k,
+                "bad_lane": bad_lane}
+        compare(base, "K3a", lk, lp, good, dtype)
+        base["K3a_upper_zero"] = bool((lk.triu(1) == 0).all())
+        lower_only = torch.equal(lk_nan[good], lk[good])
+        del lk, lk_nan, m
+        lp_nan = lp.masked_fill(upper, float("nan"))
+        for r in rs:
+            rhs = torch.randn(n_lanes, k, r, generator=gen, device=dev,
+                              dtype=dtype)
             xk = plin.batch_cho_solve(lp, rhs)
             xp = plin.batch_cho_solve_plain(lp, rhs)
-            # the kernels read only the lower triangles: NaN above the
-            # diagonal of M and of L changes nothing
-            upper = torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
-            lk_nan = plin.batch_cholesky(m.masked_fill(upper, float("nan")))
-            xk_nan = plin.batch_cho_solve(
-                lp.masked_fill(upper, float("nan")), rhs)
+            xk_nan = plin.batch_cho_solve(lp_nan, rhs)
             torch.cuda.synchronize()
-            n_k3 += 2
-            rec = {"phase": "k3", "dtype": str(dtype), "lanes": BATCH,
-                   "k": k, "r": r, "bad_lane": bad_lane}
-            for name, got, want in (("K3a", lk, lp), ("K3b", xk, xp)):
-                err = (got[good] - want[good]).abs().max().item()
-                rec[f"{name}_max_abs_err"] = err
-                rec[f"{name}_max_rel_err"] = (
-                    err / want[good].abs().max().item())
-                rec[f"{name}_bitwise_equal"] = bool(torch.equal(
-                    got[good], want[good]))
-                rec[f"{name}_bad_lane_nonfinite"] = not bool(
-                    torch.isfinite(got[bad_lane]).all())
-                rec[f"{name}_other_lanes_finite"] = bool(
-                    torch.isfinite(got[good]).all())
-                if dtype == torch.float64:
-                    k3_f64_err[name] = max(k3_f64_err[name], err)
-            rec["K3a_upper_zero"] = bool(
-                (lk.triu(1) == 0).all())
+            n_k3[1] += 2
+            rec = dict(base, r=r)
+            compare(rec, "K3b", xk, xp, good, dtype)
             rec["upper_triangle_ignored"] = (
-                torch.equal(lk_nan[good], lk[good])
-                and torch.equal(xk_nan[good], xk[good]))
-            rec["bound"] = (f"other lanes max|d| / max|value| <= "
-                            f"{bound_rel:g}; the indefinite lane non-finite, "
-                            "every other lane finite; strict upper "
-                            "triangle of L exactly zero; NaN above the "
-                            "diagonal of M and L changes no other lane")
+                lower_only and torch.equal(xk_nan[good], xk[good]))
+            rec["bound"] = (f"bitwise equal on the other lanes (and max|d| "
+                            f"/ max|value| <= {bound_rel:g}); the indefinite "
+                            "lane non-finite, every other lane finite; "
+                            "strict upper triangle of L exactly zero; NaN "
+                            "above the diagonal of M and L changes no other "
+                            "lane")
             rec["ok"] = (all((rec[f"{n}_max_rel_err"] <= bound_rel
+                              and rec[f"{n}_bitwise_equal"]
                               and rec[f"{n}_bad_lane_nonfinite"]
                               and rec[f"{n}_other_lanes_finite"])
                              for n in ("K3a", "K3b"))
@@ -1059,9 +1082,28 @@ def main() -> int:
             emit(rec)
             check(rec["ok"], f"K3 kernels disagree with their plain "
                   f"versions: {rec}")
-    check([k.launches - c for k, c in zip(k3_counts, counts0)]
-          == [n_k3, n_k3],
+            del rhs, xk, xp, xk_nan
+
+    k3_counts = (plin.batch_cholesky, plin.batch_cho_solve)
+    counts0 = [k.launches for k in k3_counts]
+    k3_f64_err = {"K3a": 0.0, "K3b": 0.0}
+    n_k3 = [0, 0]
+    # the generic cycle's (k, r) on B lanes: M^-1 A' (41, 28), M and S
+    # solves (41, 1) and (28, 1); the condensed forms' (17, 4) and (13, 1);
+    # then on B - 3 lanes (a multiple of no block's lanes) the path's k and
+    # the edge shapes k 1, 33, 64 with r 1, 3, 32, 64
+    k3_grid = [(BATCH, 41, (28, 1)), (BATCH, 28, (1,)), (BATCH, 17, (4,)),
+               (BATCH, 13, (1,)), (BATCH - 3, 41, (28, 1)),
+               (BATCH - 3, 28, (1,))] + [
+        (BATCH - 3, k, (1, 3, 32, 64)) for k in (1, 33, 64)]
+    t0 = time.perf_counter()
+    for dtype in (torch.float64, f32):
+        for n_lanes, k, rs in k3_grid:
+            k3_cases(n_lanes, k, rs, dtype)
+    check([k.launches - c for k, c in zip(k3_counts, counts0)] == n_k3,
           "the K3 kernels' counters did not advance once per call")
+    emit({"phase": "k3", "seconds": time.perf_counter() - t0,
+          "launches": n_k3})
 
     # ------------------------ 10. the generic cycle ------------------------ #
     # The reference-shape formulation off the TPU: uncondensed (n 41, me 28,

@@ -61,6 +61,8 @@ _CHO_SOLVE_ARGTYPES = ([_P] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
                        + [_P])
 _RESIDENT_WARPS_ARGTYPES = [ctypes.c_int, ctypes.c_int]   # f64, mi
 _RESIDENT_WARPS_KR_ARGTYPES = [ctypes.c_int] * 3          # f64, k, r
+_GEOMETRY_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_longlong, _P])
+#                                                           f64 k r B out
 ENTRY_POINTS = {
     "srbx_qp_fused_noeq_f32": _QP_FUSED_ARGTYPES,
     "srbx_qp_fused_noeq_f64": _QP_FUSED_ARGTYPES,
@@ -78,6 +80,7 @@ ENTRY_POINTS = {
     "srbx_pallas_cho_solve_f32": _CHO_SOLVE_ARGTYPES,
     "srbx_pallas_cho_solve_f64": _CHO_SOLVE_ARGTYPES,
     "srbx_pallas_resident_warps": _RESIDENT_WARPS_KR_ARGTYPES,
+    "srbx_pallas_launch_geometry": _GEOMETRY_ARGTYPES,
 }
 
 

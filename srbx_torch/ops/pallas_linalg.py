@@ -21,9 +21,15 @@ Two implementations with one semantics:
   kernels' column loops over a leading lane axis. The wrappers take them for
   CPU tensors; they are the reference the CUDA kernels are checked against
   on the card.
-* `srbx_torch/csrc/pallas_linalg.cu`: hand-written CUDA kernels, one warp per
-  lane, bitwise the plain loops' arithmetic. The wrappers launch them for
-  CUDA tensors, or raise.
+* `srbx_torch/csrc/pallas_linalg.cu`: hand-written CUDA kernels that keep a
+  lane's rows or right-hand sides in registers, bitwise the plain loops'
+  arithmetic. K3a gives each thread of a lane's group balanced rows of the
+  triangle and broadcasts each finished column through a small shared
+  buffer; K3b gives each thread entries x_i at r = 1 (one shuffle a step)
+  and a column of X at r > 1, with L in shared memory. A block's groups
+  loop over lanes, each lane's operands copied in once with cp.async. The
+  wrappers launch them for CUDA tensors, or raise; `launch_geometry`
+  reports how a launch is laid out.
 
 The batch-leading wrappers count their launches in a plain integer attribute
 (`batch_cholesky.launches`, `batch_cho_solve.launches`); the lanes-last
@@ -31,6 +37,8 @@ wrappers launch through them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -52,6 +60,26 @@ def batch_cho_solve_plain(l, rhs):
     x = rhs.clone()
     _substitute_(l, x)
     return x
+
+
+GEOMETRY_FIELDS = ("threads_per_lane", "lanes_per_block", "smem_bytes",
+                   "row_capacity", "blocks_per_sm", "grid")
+
+
+def launch_geometry(dtype, k, r=0, batch=1):
+    """How the CUDA kernels lay out a launch of K3a (r = 0) or K3b at (k, r)
+    for `batch` lanes in `dtype`, as the kernels' source reports it: a dict
+    of `GEOMETRY_FIELDS` (shared bytes per block, blocks resident per SM
+    from the occupancy calculator, blocks in the grid)."""
+    from srbx_torch.ops import _build
+
+    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    err = _build.load().srbx_pallas_launch_geometry(
+        int(dtype == torch.float64), k, r, batch, out)
+    if err != 0:
+        raise ValueError(f"no K3 launch for k {k}, r {r}, batch {batch}: "
+                         f"CUDA error {err}")
+    return dict(zip(GEOMETRY_FIELDS, out))
 
 
 def _check(m, rhs=None):
