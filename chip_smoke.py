@@ -24,8 +24,9 @@ Phases, each printing JSON lines:
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
 2. build     - compile every CUDA source in srbx_torch/csrc with nvcc (one
                process per source), report ptxas registers and spills, each
-               kernel's resident warps per SM and K3's launch geometry, and
-               fail if the float32 builds of K1a, K1b, K3a or K3b spill;
+               kernel's resident warps per SM and K2's and K3's launch
+               geometry, and fail if a float32 build of K1a, K1b, K2a, K2b,
+               K3a or K3b spills;
 3. kernel    - K1a against its plain PyTorch version on the card, on the
                cycle's own QPs (mi 28 cold, 48 and 52 warm), in float64
                (strict config) and float32 (relaxed and strict); then, as
@@ -40,14 +41,23 @@ Phases, each printing JSON lines:
                (float64, to 1e-9) and on LL QPs that the port's tick_build
                makes from stand and trot states at B = 4096 (float64 strict,
                float32 relaxed: converged share and a recomputed stopping
-               test), K2a and K2b on the loop's mass and swing matrices;
+               test), K2a and K2b bitwise on the loop's mass and swing
+               matrices;
                then K1b on 4093 mixed lanes as in phase 3;
 7. wholebody - run_batch at B = 4096 float32: finite, COM height, exact
                launch counts, LL ticks/s; and the first 64 lanes in float64
                through the kernels and through the plain versions;
 8. wb_times  - K1b, K2a and K2b at the loop's shapes against their plain
-               versions and, for K2, one PyTorch call (library_ms);
-9. k3        - K3a and K3b against their plain versions, bitwise on the
+               versions and, for K2, one PyTorch call (library_ms); K2's
+               device time from a replayed CUDA graph beside its
+               host-inclusive time per call;
+9a. k2       - K2a and K2b against their plain versions, bitwise on the
+               good lanes, on a ragged batch (B - 3 lanes) of the loop's
+               matrices and of random SPD matrices at k 1, 12, 17, 18, 31,
+               32 with r 1, 3, k, 32, one lane indefinite (non-finite out,
+               the others finite) and NaN above D's diagonal (no change),
+               in float64 and float32;
+9b. k3       - K3a and K3b against their plain versions, bitwise on the
                good lanes, on random SPD matrices with one indefinite lane,
                at the generic cycle's (k, r), then on a ragged batch
                (B - 3 lanes) at the path's (k, r) and at the edge shapes
@@ -138,6 +148,112 @@ def k3_work(k, r, bsz, itemsize=4):
     if r == 0:
         return itemsize * bsz * (tri + k * k), bsz * k ** 3 / 3
     return itemsize * bsz * (tri + 2 * k * r), bsz * 2 * k * k * r
+
+
+def k2_work(k, r, bsz, identity, itemsize=4):
+    """Bytes that K2a (r right-hand sides) or K2b (identity: the inverse,
+    r = k) must move on bsz lanes, and the operations it does: the lower
+    triangle of D read once (k (k + 1) / 2 entries: nothing needs the rest),
+    the right-hand sides read once (none for the identity) and X written
+    once; k^3 / 3 operations for the factorization and 2 k^2 r for the two
+    substitutions, of which the identity's forward pass needs only the rows
+    at and below each column's one (k^3 / 3 in all)."""
+    tri = k * (k + 1) // 2
+    nbytes = itemsize * bsz * (tri + (0 if identity else k * r) + k * r)
+    subst = k ** 3 / 3 + k ** 3 if identity else 2 * k * k * r
+    return nbytes, bsz * (k ** 3 / 3 + subst)
+
+
+def spd_inputs(bsz, dtype, seed, dev):
+    """The whole-body loop's SPD operands, made on the card from `seed`:
+    "d18", A1 mass matrices (bsz, 18, 18) at random configurations (joint
+    angles and base pose N(0, 0.4)); "d12", the swing operational-space
+    matrices (bsz, 12, 12) built from them as the low-level build does, with
+    random stance flags; "rhs18", right-hand sides (bsz, 18), N(0, 10)."""
+    from srbx_torch.lowlevel import LLCtx, swing_delta_inv
+    from srbx_torch.models import a1, rbd
+    from srbx_torch.ops import spd
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = a1.model()
+    q = 0.4 * torch.randn(bsz, 18, generator=gen, device=dev, dtype=dtype)
+    d = rbd.mass_matrix(model, q).contiguous()
+    toe_jac = rbd.site_jacobians(model, q)[:, a1.TOE_SITES]
+    con = torch.randint(0, 2, (bsz, 4), generator=gen, device=dev).to(dtype)
+    zero = torch.zeros(bsz, dtype=dtype, device=dev)
+    ctx = LLCtx(spd.inverse_plain(d), None, None, None, toe_jac, None, con,
+                zero, zero, None, zero)
+    return {"d18": d, "d12": swing_delta_inv(ctx).contiguous(),
+            "rhs18": 10.0 * torch.randn(bsz, 18, generator=gen, device=dev,
+                                        dtype=dtype)}
+
+
+def k2_checks(spd, dev, lanes, bad_lane=7):
+    """K2a and K2b against `solve_plain` and `inverse_plain` on `lanes`
+    lanes, in float64 and float32: on the loop's matrices (`spd_inputs`:
+    the solve at k 18, r 1 and the inverses at k 18 and 12) and on random
+    well-conditioned SPD matrices at k 1, 12, 17, 18, 31 and 32 (the solve
+    at r 1, 3, k and 32, and the inverse). In every case lane `bad_lane` is
+    made indefinite (a diagonal entry -1) and must come out non-finite; every
+    other lane must be finite and bitwise equal to the plain version's; and
+    NaN written above D's diagonal must change no lane. Returns the records
+    and the wrappers' calls, {"K2a": n, "K2b": m}."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    records, calls = [], {"K2a": 0, "K2b": 0}
+    good = torch.ones(lanes, dtype=torch.bool, device=dev)
+    good[bad_lane] = False
+    for dtype in (torch.float64, torch.float32):
+        loop = spd_inputs(lanes, dtype, 5, dev)
+        cases = [("loop", loop["d18"], [loop["rhs18"]]),
+                 ("loop", loop["d12"], [])]
+        for k in (1, 12, 17, 18, 31, 32):
+            a = torch.randn(lanes, k, k, generator=gen, device=dev,
+                            dtype=dtype)
+            d = a @ a.mT / k + torch.eye(k, dtype=dtype, device=dev)
+            rhs = [torch.randn(lanes, k, generator=gen, device=dev,
+                               dtype=dtype)]
+            rhs += [torch.randn(lanes, k, r, generator=gen, device=dev,
+                                dtype=dtype) for r in sorted({3, k, 32})
+                    if r > 1]
+            cases.append(("random", d, rhs))
+        for source, d, rhss in cases:
+            k = d.shape[-1]
+            d = d.clone()
+            d[bad_lane, k // 2, k // 2] = -1.0
+            upper = torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
+            d_nan = d.masked_fill(upper, float("nan"))
+            runs = [("K2b", None, spd.inverse, spd.inverse_plain, ())]
+            runs += [("K2a", 1 if b.dim() == 2 else b.shape[2], spd.solve,
+                      spd.solve_plain, (b,)) for b in rhss]
+            for kernel, r, fn, plain, extra in runs:
+                got = fn(d, *extra)
+                got_nan = fn(d_nan, *extra)
+                want = plain(d, *extra)
+                torch.cuda.synchronize()
+                calls[kernel] += 2
+                rec = {"phase": "k2", "kernel": kernel, "case": source,
+                       "dtype": str(dtype), "lanes": lanes, "k": k, "r": r,
+                       "bad_lane": bad_lane,
+                       "max_abs_err": (got[good] - want[good]).abs().max()
+                       .item(),
+                       "bitwise_equal": bool(torch.equal(got[good],
+                                                         want[good])),
+                       "bad_lane_nonfinite": not bool(
+                           torch.isfinite(got[bad_lane]).all()),
+                       "other_lanes_finite": bool(
+                           torch.isfinite(got[good]).all()),
+                       "upper_nan_changes_nothing": bool(
+                           torch.equal(got_nan[good], got[good])
+                           and not torch.isfinite(got_nan[bad_lane]).all()),
+                       "bound": ("bitwise equal to the plain version on "
+                                 "every other lane; the indefinite lane "
+                                 "non-finite, every other lane finite; NaN "
+                                 "above D's diagonal changes no lane")}
+                rec["ok"] = (rec["bitwise_equal"] and rec["bad_lane_nonfinite"]
+                             and rec["other_lanes_finite"]
+                             and rec["upper_nan_changes_nothing"])
+                records.append(rec)
+    return records, calls
 
 
 def k1a_work(P, c, G, h, x0, lane_iters, refine, itemsize=4):
@@ -242,6 +358,61 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, launches=100, replays=3):
+    """Device time in ms per call of fn: a CUDA graph of `launches` calls,
+    captured once and replayed `replays` times between CUDA events, one
+    value per replay. The host does no work between the launches, so this
+    is the card's time (the gaps between a graph's kernels included), not
+    the wrapper's. The captured calls run once each, in the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / launches)
+    del graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def profiler_ms(fn, name="", calls=20):
+    """CUDA time in ms per call of fn spent in the kernels whose name holds
+    `name` (every kernel, by default), from torch.profiler's key_averages()
+    over `calls` calls: the kernels' own time, without the gaps between
+    them; None where the profiler records no device time for them. (A
+    library call that synchronises or allocates inside cannot be captured
+    in a CUDA graph; this times it on the device all the same.)"""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(evt.self_device_time_total
+                   for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA
+                   and name in evt.key)
+    return total_us / calls / 1e3 if total_us > 0 else None
 
 
 def check(cond, what):
@@ -382,18 +553,21 @@ def main() -> int:
     ptxas = [ln.strip() for ln in (log.read_text().splitlines()
                                    if log.is_file() else [])
              if "entry function" in ln or "registers" in ln or "spill" in ln]
-    # the fused IPMs' and K3's float32 builds must not spill (the "If" in
-    # the mangled name is the float instantiation)
+    # the fused IPMs', K2's and K3's float32 builds must not spill (the "If"
+    # in the mangled name is the float instantiation)
     k1_ptxas = {name: ptxas_summary(log.read_text(), name) for name in (
         "qp_fused_noeq_kernel", "qp_general_kernel")}
     k3_ptxas = {name: ptxas_summary(log.read_text(), name) for name in (
         "cholesky_kernel", "cho_solve1_kernel", "cho_solve_kernel")}
+    k2_ptxas = ptxas_summary(log.read_text(), "spd_lane_kernel")
     f32_spills = sum(e["spill_stores"] + e["spill_loads"]
                      for es in k1_ptxas.values() for e in es
                      if "kernelIf" in e["entry"])
     k3_f32_spills = sum(e["spill_stores"] + e["spill_loads"]
                         for es in k3_ptxas.values() for e in es
                         if "kernelIf" in e["entry"])
+    k2_f32_spills = sum(e["spill_stores"] + e["spill_loads"]
+                        for e in k2_ptxas if "kernelIf" in e["entry"])
     warps = {f"{k}_{d}_mi{mi}": qp_fused.resident_warps(dt, mi, k == "K1b")
              for k, mis in (("K1a", (28, 48, 52)), ("K1b", (45,)))
              for d, dt in (("f32", torch.float32), ("f64", torch.float64))
@@ -401,25 +575,34 @@ def main() -> int:
     # the other kernels at their paths' shapes, float32
     for name, fn, shapes in (
             ("K2", _build.load().srbx_spd_resident_warps,
-             ((18, 1), (18, 18), (12, 12))),
+             ((18, 1), (18, 0), (12, 0))),
             ("K3", _build.load().srbx_pallas_resident_warps,
              ((41, 0), (28, 0), (41, 28), (41, 1), (28, 1)))):
         for k, r in shapes:
             warps[f"{name}_f32_k{k}_r{r}"] = fn(0, k, r)
-    from srbx_torch.ops import pallas_linalg as plin
+    from srbx_torch.ops import pallas_linalg as plin, spd
     k3_geometry = {f"{d}_k{k}_r{r}": plin.launch_geometry(dt, k, r, BATCH)
                    for d, dt in (("f32", torch.float32),
                                  ("f64", torch.float64))
                    for k, r in ((41, 0), (28, 0), (41, 28), (41, 1), (28, 1))}
+    # K2 at the whole-body path's shapes (r 0: the inverse)
+    k2_geometry = {f"{d}_k{k}_r{r}": spd.launch_geometry(dt, k, r, WB_BATCH)
+                   for d, dt in (("f32", torch.float32),
+                                 ("f64", torch.float64))
+                   for k, r in ((18, 1), (18, 0), (12, 0))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.relative_to(ROOT)), "ptxas": ptxas,
           "k1_ptxas": k1_ptxas, "k1_f32_spill_bytes": f32_spills,
           "k3_ptxas": k3_ptxas, "k3_f32_spill_bytes": k3_f32_spills,
-          "resident_warps_per_sm": warps, "k3_geometry": k3_geometry})
+          "k2_ptxas": k2_ptxas, "k2_f32_spill_bytes": k2_f32_spills,
+          "resident_warps_per_sm": warps, "k3_geometry": k3_geometry,
+          "k2_geometry": k2_geometry})
     check(f32_spills == 0 and all(k1_ptxas.values()),
           f"the fused IPMs' float32 builds spill: {k1_ptxas}")
     check(k3_f32_spills == 0 and all(k3_ptxas.values()),
           f"K3a or K3b's float32 builds spill: {k3_ptxas}")
+    check(k2_f32_spills == 0 and k2_ptxas,
+          f"K2a or K2b's float32 builds spill: {k2_ptxas}")
 
     cfg = MpcConfig(use_sqp=True, sqp_iters=2, elide_box_rows=True,
                     elide_simplex=True)
@@ -438,8 +621,8 @@ def main() -> int:
         return lanes_of(inputs, dev, dtype, count)
 
     def cycle(args, qp_cfg, **kw):
-        return mpc_batch.run_nmpc_batch(cfg, qp_cfg, *args, condensed=True,
-                                        **kw)
+        return mpc_batch.run_nmpc_batch(cfg, qp_cfg, *args, backend="fused",
+                                        condensed=True, **kw)
 
     # ------------------------- 3. kernel vs plain ------------------------- #
     def cycle_qps(dtype):
@@ -664,7 +847,6 @@ def main() -> int:
     from srbx_torch.estimation import contact
     from srbx_torch.lowlevel import swing_delta_inv
     from srbx_torch.models import a1, rbd
-    from srbx_torch.ops import spd
     from srbx_torch.sim import closedloop, wholebody as wb
 
     model = a1.model()
@@ -848,13 +1030,16 @@ def main() -> int:
                 torch.cuda.synchronize()
                 rel = ((got - want).abs().max()
                        / want.abs().max()).item()
-                bound_rel = 1e-12 if dtype == torch.float64 else 1e-5
+                # the kernels keep the plain loop's arithmetic: any
+                # differing bit is a fault
                 rec = {"phase": "wb_kernel", "kernel": kname, "case": case,
                        "dtype": str(dtype), "lanes": WB_BATCH,
                        "max_abs_err": (got - want).abs().max().item(),
                        "max_rel_err": rel,
-                       "bound": f"max|d| / max|value| <= {bound_rel:g}",
-                       "ok": rel <= bound_rel}
+                       "bitwise_equal": bool(torch.equal(got, want)),
+                       "finite": bool(torch.isfinite(got).all()),
+                       "bound": "bitwise equal to the plain version; finite"}
+                rec["ok"] = rec["bitwise_equal"] and rec["finite"]
                 if dtype == torch.float64:
                     k2_f64_rel[kname] = max(k2_f64_rel.get(kname, 0.0),
                                             rec["max_abs_err"])
@@ -946,62 +1131,108 @@ def main() -> int:
     check(wb_rec["ok"], f"whole-body loop check failed: {wb_rec}")
 
     # --------------------------- 8. whole-body times ------------------------ #
+    # K1b by CUDA events around back-to-back calls (a launch lasts
+    # milliseconds: the host's share is small), in turns with its plain
+    # version. A K2 launch lasts microseconds, less than its wrapper's host
+    # work, so each K2 shape reports its device time (a CUDA graph of 100
+    # launches, replayed: graph_ms) as `ms` and the host-inclusive time per
+    # call (events around back-to-back calls) as `host_ms`; the library
+    # call's device time comes from torch.profiler (a call that synchronises
+    # cannot be captured in a graph) and its host-inclusive time as the
+    # kernel's.
     data32, d32, dinv12_32, rhs32 = wb_qps[f32]["trot"]
     sk = qp_fused.solve(*data32, wb_relaxed)
-    wb_ms = {}
-    for kname, kern, plain, library in (
-            ("K1b", lambda: qp_fused.solve(*data32, wb_relaxed),
-             lambda: qp_fused.solve_plain(*data32, wb_relaxed), None),
-            ("K2a", lambda: spd.solve(d32, rhs32),
-             lambda: spd.solve_plain(d32, rhs32),
-             lambda: torch.linalg.solve(d32, rhs32)),
-            ("K2b", lambda: spd.inverse(d32), lambda: spd.inverse_plain(d32),
-             lambda: torch.linalg.inv(d32)),
-            ("K2b_k12", lambda: spd.inverse(dinv12_32),
-             lambda: spd.inverse_plain(dinv12_32),
-             lambda: torch.linalg.inv(dinv12_32))):
-        kern(), plain()
-        if library is not None:
-            library()
+
+    def k1b_kern():
+        return qp_fused.solve(*data32, wb_relaxed)
+
+    def k1b_plain():
+        return qp_fused.solve_plain(*data32, wb_relaxed)
+
+    k1b_plain()
+    p1 = event_ms(k1b_plain, 3)
+    t1 = event_ms(k1b_kern, REPS)
+    t2 = event_ms(k1b_kern, REPS)
+    p2 = event_ms(k1b_plain, 3)
+    k1b_ms = ((t1 + t2) / 2, (p1 + p2) / 2)
+    emit({"phase": "wb_times", "kernel": "K1b", "lanes": WB_BATCH,
+          "dtype": "float32", "kernel_ms": [t1, t2], "plain_ms": [p1, p2],
+          "library_ms": None, "device": smi})
+    k2_ms = {}
+    for kname, k, r, kern, plain, library in (
+            ("K2a", 18, 1, functools.partial(spd.solve, d32, rhs32),
+             functools.partial(spd.solve_plain, d32, rhs32),
+             functools.partial(torch.linalg.solve, d32, rhs32)),
+            ("K2b", 18, 0, functools.partial(spd.inverse, d32),
+             functools.partial(spd.inverse_plain, d32),
+             functools.partial(torch.linalg.inv, d32)),
+            ("K2b_k12", 12, 0, functools.partial(spd.inverse, dinv12_32),
+             functools.partial(spd.inverse_plain, dinv12_32),
+             functools.partial(torch.linalg.inv, dinv12_32))):
+        kern(), plain(), library()
         p1 = event_ms(plain, 3)
-        k1 = event_ms(kern, REPS)
-        k2 = event_ms(kern, REPS)
+        dev_ms = graph_ms(kern)
+        h1 = event_ms(kern, REPS)
+        h2 = event_ms(kern, REPS)
         p2 = event_ms(plain, 3)
-        lib_ms = event_ms(library, REPS) if library is not None else None
-        wb_ms[kname] = ((k1 + k2) / 2, (p1 + p2) / 2, lib_ms)
-        emit({"phase": "wb_times", "kernel": kname, "lanes": WB_BATCH,
-              "dtype": "float32", "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-              "library_ms": lib_ms, "device": smi})
+        lib_ms = profiler_ms(library)
+        lib_host = event_ms(library, REPS)
+        k2_ms[kname] = dict(
+            k=k, r=r or k, ms=sum(dev_ms) / len(dev_ms), host_ms=(h1 + h2) / 2,
+            plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+            library_host_ms=lib_host,
+            **bound(*k2_work(k, r or k, WB_BATCH, identity=r == 0)))
+        emit({"phase": "wb_times", "kernel": kname, "k": k, "r": r or k,
+              "lanes": WB_BATCH, "dtype": "float32", "device_ms": dev_ms,
+              "host_ms": [h1, h2], "plain_ms": [p1, p2],
+              "library_ms": lib_ms, "library_host_ms": lib_host,
+              "geometry": spd.launch_geometry(f32, k, r, WB_BATCH),
+              **bound(*k2_work(k, r or k, WB_BATCH, identity=r == 0)),
+              "device": smi})
 
-    def elems(*ts):
-        return sum(t.numel() for t in ts)
-
-    bsz = WB_BATCH
     k1b_bytes, k1b_flops = k1b_work(data32, sk, wb_relaxed.kkt_refine_iters)
-    k2a_bytes = 4 * (elems(d32) + 2 * elems(rhs32))
-    k2b_bytes = 4 * 2 * elems(d32)
-    k = 18
-    for name, src, replaces, key, err, nbytes, flops in (
-            ("qp_general", "srbx_torch/csrc/qp_general.cu",
-             "srbx/ops/qp_fused.py:94", "K1b", k1b_f64_dx, k1b_bytes,
-             k1b_flops),
-            ("spd_solve", "srbx_torch/csrc/spd.cu", "srbx/ops/spd.py:70",
-             "K2a", k2_f64_rel["K2a spd.solve k18"], k2a_bytes,
-             bsz * (k ** 3 / 3 + 2 * k * k)),
-            ("spd_inverse", "srbx_torch/csrc/spd.cu", "srbx/ops/spd.py:78",
-             "K2b", max(k2_f64_rel["K2b spd.inverse k18"],
-                        k2_f64_rel["K2b spd.inverse k12"]), k2b_bytes,
-             bsz * (k ** 3 / 3 + 2 * k ** 3))):
-        ms, plain_ms, lib_ms = wb_ms[key]
+    kernels.append(dict(
+        name="qp_general", route="cuda", source="srbx_torch/csrc/qp_general.cu",
+        replaces="srbx/ops/qp_fused.py:94", launches=wb_launches["K1b"],
+        max_abs_err=k1b_f64_dx, ms=k1b_ms[0], plain_ms=k1b_ms[1],
+        library_ms=None, launches_by_path={"wholebody": wb_launches["K1b"]},
+        **bound(k1b_bytes, k1b_flops)))
+    for name, replaces, key, err, cases in (
+            ("spd_solve", "srbx/ops/spd.py:70", "K2a",
+             k2_f64_rel["K2a spd.solve k18"], ("K2a",)),
+            ("spd_inverse", "srbx/ops/spd.py:78", "K2b",
+             max(k2_f64_rel["K2b spd.inverse k18"],
+                 k2_f64_rel["K2b spd.inverse k12"]), ("K2b", "K2b_k12"))):
+        main_case = {f: v for f, v in k2_ms[cases[0]].items()
+                     if f not in ("k", "r")}
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=wb_launches[key], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms,
-            launches_by_path={"wholebody": wb_launches[key]},
-            **bound(nbytes, flops)))
+            name=name, route="cuda", source="srbx_torch/csrc/spd.cu",
+            replaces=replaces, launches=wb_launches[key], max_abs_err=err,
+            **main_case, launches_by_path={"wholebody": wb_launches[key]},
+            by_case={c: k2_ms[c] for c in cases}))
     kernels[0]["launches_by_path"]["wholebody"] = wb_launches["K1a"]
 
-    # ------------------------ 9. K3 kernels vs plain ----------------------- #
+    # ----------------------- 9a. K2 kernels vs plain ----------------------- #
+    # K2a and K2b bitwise against their plain versions on a ragged batch
+    # (B - 3 lanes: the last block part full) of the loop's matrices and of
+    # random SPD matrices at the edge shapes k 1, 12, 17, 18, 31, 32 with
+    # r 1, 3, k, 32, each with one indefinite lane and again with NaN above
+    # D's diagonal, in float64 and float32 (k2_checks)
+    k2_counts = (spd.solve, spd.inverse)
+    counts0 = [k.launches for k in k2_counts]
+    t0 = time.perf_counter()
+    k2_recs, k2_calls = k2_checks(spd, dev, WB_BATCH - 3)
+    for rec in k2_recs:
+        emit(rec)
+        check(rec["ok"], f"K2 kernels disagree with their plain versions: "
+              f"{rec}")
+    check([k.launches - c for k, c in zip(k2_counts, counts0)]
+          == [k2_calls["K2a"], k2_calls["K2b"]],
+          "the K2 kernels' counters did not advance once per call")
+    emit({"phase": "k2", "seconds": time.perf_counter() - t0,
+          "cases": len(k2_recs), "launches": k2_calls})
+
+    # ----------------------- 9b. K3 kernels vs plain ----------------------- #
     from srbx_torch.ops import qp_batch
 
     gen = torch.Generator(device=dev).manual_seed(11)

@@ -89,7 +89,8 @@ def main() -> int:
                 ctx["forces"], d_inv=ctx["dinv"])
 
         def solve():
-            ctx["sol"] = qp_batch.solve(*ctx["data"], qp_cfg)
+            ctx["sol"] = qp_batch.solve(*ctx["data"], qp_cfg,
+                                        backend="fused")
 
         def inv_swing():
             ctx["delta"] = spd.inverse(swing_delta_inv(ctx["tick"].ll_ctx))

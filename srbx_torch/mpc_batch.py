@@ -137,7 +137,7 @@ def run_nmpc_batch(
     prd_agent,                    # (B, 2, T)
     agent_initial,                # (B, 2)
     pobs_real,                    # (B, 2, n_obs)
-    backend: str = "fused",
+    backend: str = "pallas",
     condensed: bool | None = None,
     state_other=None,             # optional (B, 4) neighbour (x, y, dx, dy)
     agent_circle_eps: float = 0.0,
@@ -146,13 +146,14 @@ def run_nmpc_batch(
     """One NMPC cycle for every lane; the JAX signature without the
     TPU-only `tile` and `interpret`.
 
-    The default backend is "fused" (the JAX package's is "pallas"), so that
-    the condensed, simplex-eliminated configuration of the benchmark and the
-    whole-body loop takes the lanes-last branch through kernel K1a. Any other
-    configuration takes the generic branch through `qp_batch.solve`:
-    "pallas" (kernels K3a and K3b) or "xla" (torch.linalg). There
-    backend="fused" reaches kernel K1b, which is built for n 43 and me 30
-    only and raises on the NMPC's shapes. qp_converged and qp_iters are the
+    The default backend is the JAX package's, "pallas". The condensed,
+    simplex-eliminated configuration of the benchmark and the whole-body
+    loop takes the lanes-last branch through kernel K1a only with
+    backend="fused", which its callers pass. Any other call takes the
+    generic branch through `qp_batch.solve`: "pallas" (kernels K3a and K3b)
+    or "xla" (torch.linalg). There backend="fused" reaches kernel K1b,
+    which is built for n 43 and me 30 only and raises on the NMPC's
+    shapes. qp_converged and qp_iters are the
     first QP's, qp_iters its iteration count (max over lanes), as in the JAX
     package. Matrix products run in full float32 (no TF32); the caller's
     setting is restored after.

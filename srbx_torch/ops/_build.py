@@ -75,6 +75,7 @@ ENTRY_POINTS = {
     "srbx_spd_inverse_f32": _SPD_INVERSE_ARGTYPES,
     "srbx_spd_inverse_f64": _SPD_INVERSE_ARGTYPES,
     "srbx_spd_resident_warps": _RESIDENT_WARPS_KR_ARGTYPES,
+    "srbx_spd_launch_geometry": _GEOMETRY_ARGTYPES,
     "srbx_pallas_cholesky_f32": _CHOLESKY_ARGTYPES,
     "srbx_pallas_cholesky_f64": _CHOLESKY_ARGTYPES,
     "srbx_pallas_cho_solve_f32": _CHO_SOLVE_ARGTYPES,

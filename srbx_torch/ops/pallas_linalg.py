@@ -42,7 +42,8 @@ import ctypes
 
 import torch
 
-from srbx_torch.ops.spd import _cholesky_, _launch, _substitute_
+from srbx_torch.ops.spd import (GEOMETRY_FIELDS, _cholesky_, _launch,
+                                 _substitute_)
 
 MAX_K = 64           # the kernels' largest k
 MAX_R = 64           # and largest number of right-hand sides
@@ -60,10 +61,6 @@ def batch_cho_solve_plain(l, rhs):
     x = rhs.clone()
     _substitute_(l, x)
     return x
-
-
-GEOMETRY_FIELDS = ("threads_per_lane", "lanes_per_block", "smem_bytes",
-                   "row_capacity", "blocks_per_sm", "grid")
 
 
 def launch_geometry(dtype, k, r=0, batch=1):

@@ -162,10 +162,11 @@ def full_f32_products():
 
 
 def solve(P, c, A, b, G, h, cfg: QpConfig = QpConfig(),
-          backend: str = "fused", x0=None) -> BatchSolution:
+          backend: str = "xla", x0=None) -> BatchSolution:
     """All operands batch-leading (B, ...); x0 optionally warm-starts the
     primal iterate (the SQP handoff). The JAX signature without the TPU-only
-    `tile` and `interpret`; the default backend is "fused"."""
+    `tile` and `interpret`, and its default backend, "xla"; backend="fused"
+    runs kernel K1b."""
     if A.shape[-2] == 0 and (cfg.ruiz_iters or backend != "fused"):
         # the step-fused backends and the equilibration need me >= 1: an
         # inert 0 = 0 row, kept at dy = 0 by the dual regularization

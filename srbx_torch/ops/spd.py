@@ -20,19 +20,34 @@ Two implementations with one semantics:
 * `solve_plain` / `inverse_plain`: plain PyTorch, the Cholesky loop written
   out over a leading lane axis. The wrappers take them for CPU tensors;
   they are the reference the CUDA kernels are checked against on the card.
-* `srbx_torch/csrc/spd.cu`: hand-written CUDA kernels, one warp per lane.
-  The wrappers launch them for CUDA tensors, or raise.
+* `srbx_torch/csrc/spd.cu`: hand-written CUDA kernels, one launch per
+  call. Each lane is served by one group of threads (a warp; a half-warp up
+  to k 16) that factors D with its rows in registers, hands L to shared
+  memory and substitutes with x in registers: one row a thread for one
+  right-hand side, one column of X a thread for several or for the
+  identity, which starts in registers and is never read from memory. The
+  routines are K3's (`csrc/lane_chol.cuh`). What bounds the kernels at the
+  whole-body path's B = 4096 is each lane's chain of dependent column
+  steps, not bytes: a launch is one wave. The wrappers launch them for CUDA
+  tensors, or raise.
 
+Both are bitwise equal: the kernels round every product and difference
+(no fused multiply-add) and update each entry in the plain loop's order.
 Each wrapper counts its launches in a plain integer attribute
 (`solve.launches`, `inverse.launches`).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-MAX_K = 32           # the kernels' largest k (one warp spans a column)
+MAX_K = 32           # the kernels' largest k
 MAX_R = 32           # solve's largest number of right-hand sides
+# what a launch_geometry query reports, here and in pallas_linalg
+GEOMETRY_FIELDS = ("threads_per_lane", "lanes_per_block", "smem_bytes",
+                   "row_capacity", "blocks_per_sm", "grid")
 
 
 def _cholesky_(a):
@@ -82,6 +97,21 @@ def inverse_plain(d):
         d.shape[0], 1, 1)
     _substitute_(l, x)
     return x
+
+
+def launch_geometry(dtype, k, r=0, batch=1):
+    """How the CUDA kernel lays out a launch of the solve at (k, r), or with
+    r = 0 of the inverse, for `batch` lanes in `dtype`, as the kernel's
+    source reports it: a dict of `GEOMETRY_FIELDS`."""
+    from srbx_torch.ops import _build
+
+    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    err = _build.load().srbx_spd_launch_geometry(
+        int(dtype == torch.float64), k, r, batch, out)
+    if err != 0:
+        raise ValueError(f"no K2 launch for k {k}, r {r}, batch {batch}: "
+                         f"CUDA error {err}")
+    return dict(zip(GEOMETRY_FIELDS, out))
 
 
 def _check(d, rhs=None):

@@ -129,7 +129,8 @@ def _port_cycle(qp_cfg, inp):
     eps = inp.get("agent_circle_eps", 0.0)
     t.pop("agent_circle_eps", None)
     return convert.to_numpy(mpc_batch.run_nmpc_batch(
-        CFG, qp_cfg, carry, condensed=True, agent_circle_eps=eps, **t))
+        CFG, qp_cfg, carry, backend="fused", condensed=True,
+        agent_circle_eps=eps, **t))
 
 
 def _assert_cycles_agree(got, want):

@@ -5,6 +5,7 @@ branches that are not ported, and the state conversion between the two
 packages."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -18,16 +19,20 @@ import srbx.config as jconfig
 from srbx import agent as jagent
 from srbx import motion as jmotion
 from srbx import mpc as jmpc
+from srbx import mpc_batch as jmpc_batch
 from srbx import refplan as jrefplan
 from srbx.config import MpcConfig, QpConfig
 from srbx.estimation import contact as jcontact
+from srbx.ops import qp_batch as jqp_batch
+from srbx.ops import qp_fused as jqp_fused
+from srbx.ops import spd as jspd
 from srbx.sim import closedloop as jclosedloop
 from srbx.sim import wholebody as jwb
 from srbx_torch import agent, config, convert, motion, mpc, mpc_batch, refplan
 from srbx_torch.estimation import contact
 from srbx_torch.models import a1
 from srbx_torch.ocp import default_footholds
-from srbx_torch.ops import _build, qp_batch, qp_fused
+from srbx_torch.ops import _build, qp_batch, qp_fused, spd
 from srbx_torch.sim import closedloop, wholebody as wb
 
 torch.set_num_threads(1)
@@ -79,6 +84,37 @@ def test_gait_and_dof_are_the_jax_packages():
     assert [(g.name, int(g)) for g in config.Gait] == \
         [(g.name, int(g)) for g in jconfig.Gait]
     assert config.TOTAL_DOF == jconfig.TOTAL_DOF
+
+
+def _default(value):
+    """A default in a form that compares across the two packages: a
+    configuration by its fields, a dtype by its name."""
+    if dataclasses.is_dataclass(value):
+        return type(value).__name__, dataclasses.asdict(value)
+    if "float" in str(value) or "int" in str(value):
+        return "dtype", str(value).rsplit(".", 1)[-1].rstrip("'>")
+    return value
+
+
+@pytest.mark.parametrize("mine,theirs", [
+    (mpc_batch.run_nmpc_batch, jmpc_batch.run_nmpc_batch),
+    (qp_batch.solve, jqp_batch.solve),
+    (closedloop.run_batch, jclosedloop.run_batch),
+    (qp_fused.solve, jqp_fused.solve),
+    (qp_fused.solve_lanes_last, jqp_fused.solve_lanes_last),
+    (spd.solve, jspd.solve), (spd.inverse, jspd.inverse),
+], ids=["run_nmpc_batch", "qp_batch_solve", "run_batch", "qp_fused_solve",
+        "solve_lanes_last", "spd_solve", "spd_inverse"])
+def test_entry_points_keep_the_jax_defaults(mine, theirs):
+    """Every parameter that a port entry point shares with its JAX
+    counterpart has the same default, so that a call ported from the JAX
+    package without that argument runs the same branch."""
+    ours = inspect.signature(mine).parameters
+    ref = inspect.signature(theirs).parameters
+    shared = [name for name in ours if name in ref]
+    assert shared[:2] == list(ours)[:2]
+    assert {n: _default(ours[n].default) for n in shared} == \
+        {n: _default(ref[n].default) for n in shared}
 
 
 def test_entry_points_default_to_the_card():

@@ -91,7 +91,8 @@ def test_plain_general_ipm_matches_xla_on_ll_qps():
     cfg = QpConfig()
     want = jax.jit(lambda *o: jqp_batch.solve(*o, cfg, backend="xla"))(
         *(jnp.asarray(a) for a in ops))
-    got = qp_batch.solve(*(torch.as_tensor(a) for a in ops), cfg)
+    got = qp_batch.solve(*(torch.as_tensor(a) for a in ops), cfg,
+                         backend="fused")
     assert qp_fused.solve.launches == 0     # the CPU path launches nothing
     wx = np.asarray(want.x)
     err = (np.abs(got.x.numpy() - wx) / np.maximum(1.0, np.abs(wx))).max(1)
@@ -153,7 +154,8 @@ def test_general_wrapper_cpu_path_is_the_plain_version():
 
 @pytest.mark.parametrize("change", [
     dict(backend="xla"), dict(backend="pallas"),
-    dict(cfg=QpConfig(ruiz_iters=5)), dict(me=0),
+    dict(cfg=QpConfig(ruiz_iters=5), backend="fused"),
+    dict(me=0, backend="fused"),
 ], ids=["xla", "pallas", "ruiz", "noeq"])
 def test_qp_batch_unported_options_raise(change, monkeypatch):
     """Where qp_batch.solve sends the low-level QP's shape. These options
