@@ -17,7 +17,12 @@ Three paths, each driven through the entry point a user calls:
   (`run_nmpc_batch(backend="pallas", condensed=False)`: QPs of n 41, me 28,
   mi 92 and 112 through the step-fused batched IPM, with the Cholesky and
   Cholesky-solve kernels K3a and K3b on every iteration) at B = 131072,
-  float32.
+  float32;
+* the template A/B success-rate campaign
+  (`srbx_torch.eval.run_campaign_ab.main`: the batched APF planner, then
+  120 gait domains of one lanes-last NMPC cycle for all lanes through K1a)
+  at the runner's size: 1024 scenarios x 2 agents, 40,000 planner steps,
+  float32, QP-only and CBF-SQP, on the JAX package's key-0 fields.
 
 Phases, each printing JSON lines:
 
@@ -70,7 +75,22 @@ Phases, each printing JSON lines:
                at each (k, r) the relaxed cycle launched them with, against
                their plain versions and torch.linalg.cholesky_ex /
                torch.cholesky_solve (library_ms); their kernels-line rows
-               weight those shapes by their launches.
+               weight those shapes by their launches;
+12. campaign - (a) the batched planner at S 1024, loop 40,000, float32
+               (seconds), and 2 fields in float64 against per-field
+               rollouts (1e-12); (b) both A/B legs through the runner
+               (writes runs/CAMPAIGN_TORCH_1024.json): no non-finite
+               lane, success rates within 0.01 of docs/CAMPAIGN_1024.json,
+               qp_ok_frac at most 0.005 below it, CBF-SQP above QP-only,
+               exact K1a launches; a torch.profiler run of 8 domains a leg
+               (the card's busy and idle shares, K1a's share); (c) the
+               CBF-SQP leg in float64: success agrees on >= 99 % of lanes;
+               (d) K1a against its plain version on the campaign's own QPs
+               (domains 60 and 61 of the CBF-SQP leg interleaved, B 2048,
+               mi 28 cold and mi 52 warm) in float32 and float64, with its
+               ms per launch; (e) the template_campaign golden through K3a
+               and K3b (backend "pallas", float64); (f) the CBF-SQP leg at
+               S 4096 (domains_per_s).
 
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
@@ -98,6 +118,8 @@ REPS = 10
 GEN_REPS = 3             # generic-cycle repetitions per timing
 WB_BATCH = 4096          # whole-body lanes
 WB_CROSS_LANES = 64      # whole-body lanes run in float64, kernels vs plain
+CAMPAIGN_LOOP = 40_000   # the A/B runner's APF rollout steps
+SCALING_SCENARIOS = 4096  # the campaign's scaling line
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
@@ -395,24 +417,15 @@ def graph_ms(fn, launches=100, replays=3):
 
 def profiler_ms(fn, name="", calls=20):
     """CUDA time in ms per call of fn spent in the kernels whose name holds
-    `name` (every kernel, by default), from torch.profiler's key_averages()
-    over `calls` calls: the kernels' own time, without the gaps between
+    `name` (every kernel, by default), from torch.profiler over `calls`
+    calls (device_profile): the kernels' own time, without the gaps between
     them; None where the profiler records no device time for them. (A
     library call that synchronises or allocates inside cannot be captured
     in a CUDA graph; this times it on the device all the same.)"""
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(evt.self_device_time_total
-                   for evt in prof.key_averages()
-                   if evt.device_type == torch.autograd.DeviceType.CUDA
-                   and name in evt.key)
-    return total_us / calls / 1e3 if total_us > 0 else None
+    _, _, by_name = device_profile(lambda: [fn() for _ in range(calls)])
+    total = sum(ms for key, ms in by_name.items() if name in key)
+    return total / calls if total > 0 else None
 
 
 def check(cond, what):
@@ -466,36 +479,52 @@ def lanes_of(inputs, dev, dtype, count=BATCH):
     return convert.from_numpy(head, dev, dtype)
 
 
-def nmpc_cycle_qps(cfg, strict, inputs, p_start, pobs, dev, dtype):
-    """The cycle's own QPs: the cold first solve (mi 28), and SCP solves
-    warm-started from its solution with one (mi 48) and two (mi 52) CBF
-    circles, the second the other agent's start. Returns the condensed QP
-    and [(case, G, h, x0)]."""
+def cycle_qps(cfg, qp_cfg, lanes, other, scp_masks, cold="cold_mi28"):
+    """The cycle's own QPs on `lanes` (run_nmpc_batch's lane arguments,
+    carry first): the cold first solve (mi 28), then for each (case, mask)
+    in `scp_masks` an SCP solve as the cycle's first round builds it, warm
+    from the first solve's plain solution under qp_cfg: the velocity rows
+    and the linearised CBF rows of the closest obstacle and, with a second
+    mask entry, of `other` (B, 2), the neighbour, masked as the cycle masks
+    it (mi 48 with one circle, 52 with two). Returns the condensed QP and
+    [(case, G, h, x0)]."""
     from srbx_torch import mpc, mpc_batch, sqp
     from srbx_torch.ocp import contract
     from srbx_torch.ops import qp_fused
 
-    carry, q, dq, toe, ci, pr, prd, a0, pob = lanes_of(inputs, dev, dtype)
+    carry, q, dq, toe, ci, pr, prd, a0, pob = lanes
+    dtype, bsz = q.dtype, q.shape[0]
     ci_eff = mpc_batch.effective_contacts(carry, ci)
     qp = mpc_batch.condensed_qp(cfg, carry, q, dq, toe, ci_eff, pr, prd, a0)
     x_ll = qp_fused.solve_lanes_last_plain(qp.P, qp.c, qp.G, qp.h,
-                                           strict)[0]
+                                           qp_cfg)[0]
     x = mpc_batch.expand_ll(qp, x_ll)
     x0 = contract(cfg, x, ci_eff).T.contiguous()
-    obs = mpc.closest_obstacle(q, pob)[0]
-    other = torch.tensor(p_start[2:], dtype=dtype,
-                         device=dev).expand(BATCH, 2)
-    vel_g, vel_h = sqp._vel_rows(cfg, dtype, dev)
-    cases = [("cold_mi28", qp.G, qp.h, None)]
-    for name, circles in (("warm_mi48", obs[:, None]),
-                          ("warm_mi52", torch.stack([obs, other], 1))):
-        mask = torch.ones(circles.shape[:2], dtype=dtype, device=dev)
-        cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles, mask, dtype)
+    circles = torch.stack([mpc.closest_obstacle(q, pob)[0], other], 1)
+    vel_g, vel_h = sqp._vel_rows(cfg, dtype, q.device)
+    cases = [(cold, qp.G, qp.h, None)]
+    for name, mask in scp_masks:
+        m = torch.tensor(mask, dtype=dtype, device=q.device).expand(
+            bsz, len(mask))
+        cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles[:, :len(mask)], m,
+                                     dtype)
         g, h = mpc_batch.project_rows(
-            qp, torch.cat([vel_g.expand(BATCH, -1, -1), cbf_g], 1),
-            torch.cat([vel_h.expand(BATCH, -1), cbf_h], 1))
+            qp, torch.cat([vel_g.expand(bsz, -1, -1), cbf_g], 1),
+            torch.cat([vel_h.expand(bsz, -1), cbf_h], 1))
         cases.append((name, g, h, x0))
     return qp, cases
+
+
+def nmpc_cycle_qps(cfg, strict, inputs, p_start, pobs, dev, dtype):
+    """The benchmark cycle's own QPs (`cycle_qps` on the benchmark lanes):
+    the cold first solve (mi 28), and SCP solves warm-started from its
+    solution with one (mi 48) and two (mi 52) CBF circles, the second the
+    other agent's start. `pobs` is the lanes' own field (kept for the
+    scripts that call this)."""
+    other = torch.tensor(p_start[2:], dtype=dtype,
+                         device=dev).expand(BATCH, 2)
+    return cycle_qps(cfg, strict, lanes_of(inputs, dev, dtype), other,
+                     (("warm_mi48", (1.0,)), ("warm_mi52", (1.0, 1.0))))
 
 
 def random_ll_qps(bsz, dev, dtype, seed=7, n=43, me=30, mi=45):
@@ -512,6 +541,365 @@ def random_ll_qps(bsz, dev, dtype, seed=7, n=43, me=30, mi=45):
         p, rng.normal(size=(bsz, n)), a, np.einsum("bmn,bn->bm", a, x_feas),
         g, np.einsum("bmn,bn->bm", g, x_feas)
         + rng.uniform(0.1, 1.0, (bsz, mi)))]
+
+
+def device_profile(fn):
+    """Wall seconds of fn (ended by a synchronize) under torch.profiler, the
+    card's busy ms in it (the kernels' and copies' own time) and the busy
+    ms by kernel name. The profiler's own host cost is in the wall."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {evt.key: evt.self_device_time_total / 1e3
+               for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and evt.self_device_time_total > 0}
+    return wall, sum(by_name.values()), by_name
+
+
+def campaign_golden_check(dev, smi):
+    """The template_campaign golden (docs/golden/golden.json) on the card:
+    backend "pallas" (K3a and K3b), float64, the golden's uncondensed
+    configuration, QpConfig(), 8 domains, loop 4000, on the JAX package's
+    key-1234 fields. Its bounds are the golden's own, but for final_xy on
+    the lanes where some QP of the run does not converge, held to the JAX
+    package's 3e-2 for the SCP's amplification of rounding (the same lanes
+    run to max_iters in both packages; tests/test_torch_golden.py)."""
+    from srbx_torch import refplan
+    from srbx_torch.config import MpcConfig, QpConfig
+    from srbx_torch.eval import campaign, run_campaign_ab
+    from srbx_torch.ops import pallas_linalg as plin, qp_batch, qp_fused
+
+    with open(ROOT / "docs" / "golden" / "golden.json") as f:
+        gold = json.load(f)["template_campaign"]
+    f64 = torch.float64
+    pobs, pobs_real = run_campaign_ab.jax_fields("key1234", f64, dev)
+    unconverged = torch.zeros(pobs.shape[0] * 2, dtype=torch.bool,
+                              device=dev)
+    real_solve = qp_batch.solve
+
+    def watched(*a, **kw):
+        sol = real_solve(*a, **kw)
+        unconverged.logical_or_(~sol.converged)
+        return sol
+
+    counters = (plin.batch_cholesky, plin.batch_cho_solve,
+                qp_fused.solve_lanes_last, qp_fused.solve)
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(qp_batch, "solve", watched):
+        res = campaign._run_campaign_batch_core(
+            MpcConfig(use_sqp=True, sqp_iters=2), QpConfig(),
+            campaign.CampaignConfig(n_agents=2, n_domains=8),
+            refplan.two_agent_config(loop_size=4_000),
+            torch.tensor(run_campaign_ab.P_START, dtype=f64, device=dev),
+            pobs, pobs_real, None, "pallas")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in zip(
+        ("K3a", "K3b", "K1a", "K1b"), counters)}
+    got = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+    ok_lanes = ~unconverged.reshape(-1, 2).cpu().numpy()
+    d_final = np.abs(got["final_xy"] - np.asarray(gold["final_xy"])).max(-1)
+    rec = {"phase": "campaign", "what": "template_campaign golden",
+           "backend": "pallas", "dtype": "float64", "lanes": 64,
+           "domains": 8, "wall_s": wall, "launches": launches,
+           "success_equal": bool((got["success"].astype(int)
+                                  == np.asarray(gold["success"])).all()),
+           "min_clearance": float(np.abs(got["min_clearance"] - np.asarray(
+               gold["min_clearance"])).max()),
+           "qp_ok_frac": float(np.abs(got["qp_ok_frac"] - np.asarray(
+               gold["qp_ok_frac"])).max()),
+           "final_xy_converged_lanes": float(d_final[ok_lanes].max()),
+           "final_xy_all": float(d_final.max()),
+           "lanes_with_an_unconverged_qp": int((~ok_lanes).sum()),
+           "bound": ("success exact; min_clearance 1e-6; qp_ok_frac 1e-9; "
+                     "final_xy 1e-6 on lanes whose every QP converged, 3e-2 "
+                     "on the others; K3a and K3b launched, no K1"),
+           "device": smi}
+    rec["ok"] = (rec["success_equal"] and rec["min_clearance"] <= 1e-6
+                 and rec["qp_ok_frac"] <= 1e-9
+                 and rec["final_xy_converged_lanes"] <= 1e-6
+                 and rec["final_xy_all"] <= 3e-2
+                 and launches["K3a"] > 0 and launches["K3b"] > 0
+                 and launches["K1a"] == 0 and launches["K1b"] == 0)
+    emit(rec)
+    check(rec["ok"], f"template_campaign golden on the card: {rec}")
+    return launches
+
+
+def campaign_phase(dev, smi):
+    """Phase 12, the template A/B campaign (see the module docstring).
+    Returns K1a's launches in the A/B legs and the scaling run, K3's in the
+    golden check, and K1a's records on the campaign's own QPs."""
+    from srbx_torch import mpc_batch, refplan
+    from srbx_torch.eval import campaign, run_campaign_ab
+    from srbx_torch.ops import qp_fused
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    out_dir = ROOT / "runs"               # the runner's JSON (git-ignored)
+    with open(ROOT / "docs" / "CAMPAIGN_1024.json") as f:
+        record = json.load(f)
+    n_domains = record["n_domains"]
+    pobs, pobs_real = run_campaign_ab.jax_fields("key0", f32, dev)
+    n_scen = pobs.shape[0]
+    p32 = torch.tensor(run_campaign_ab.P_START, dtype=f32, device=dev)
+    ref_cfg = refplan.two_agent_config(loop_size=CAMPAIGN_LOOP)
+    qp_cfg = run_campaign_ab.QP_CFG
+
+    # (a) the batched planner: S 1024, loop 40,000, float32; and 2 fields in
+    # float64 against per-field rollouts (loop 4000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes_ref = campaign.plan_lanes(ref_cfg, p32, pobs, 2, f32, dev)
+    torch.cuda.synchronize()
+    planner_s = time.perf_counter() - t0
+    cfg4k = refplan.two_agent_config(loop_size=4_000)
+    p64 = p32.double()
+    two = pobs[:2].double()
+    batch = refplan.generate(cfg4k, p64, two, device=dev)
+    rel = 0.0
+    for s in range(2):
+        one = refplan.generate(cfg4k, p64, two[s], device=dev)
+        for a, b in ((batch.pr[s], one.pr), (batch.prd[s], one.prd)):
+            rel = max(rel, ((a - b).abs().max() / b.abs().max()).item())
+    rec = {"phase": "campaign", "what": "planner", "scenarios": n_scen,
+           "loop_size": CAMPAIGN_LOOP, "dtype": "float32",
+           "seconds": planner_s,
+           "finite": bool(all(torch.isfinite(t).all() for t in lanes_ref)),
+           "f64_batched_vs_per_field_rel": rel,
+           "bound": "finite; float64 batched vs per-field max|d| / max|ref| "
+                    "<= 1e-12 (2 fields, loop 4000)", "device": smi}
+    rec["ok"] = rec["finite"] and rel <= 1e-12
+    emit(rec)
+    check(rec["ok"], f"campaign planner: {rec}")
+
+    # (b) both A/B legs through the runner at full size on the key-0
+    # fields. The CBF-SQP leg's cycle inputs of domains 60 and 61 are kept
+    # for (d): their lanes interleaved give mixed contacts.
+    captured = {}
+    real_cycle = mpc_batch.run_nmpc_batch
+    sqp_calls = [0]
+
+    def capturing(cfg, qp_cfg_, *args, **kw):
+        if cfg.use_sqp:
+            if sqp_calls[0] in (60, 61) and sqp_calls[0] not in captured:
+                captured[sqp_calls[0]] = (args, kw)
+            sqp_calls[0] += 1
+        return real_cycle(cfg, qp_cfg_, *args, **kw)
+
+    qp_fused.solve_lanes_last.launches = 0
+    with mock.patch.object(mpc_batch, "run_nmpc_batch", capturing):
+        summ, results = run_campaign_ab.main(
+            n_scen, n_domains, device=dev, loop_size=CAMPAIGN_LOOP,
+            out=out_dir / f"CAMPAIGN_TORCH_{n_scen}.json")
+    ab_launches = qp_fused.solve_lanes_last.launches
+    expect = 2 * n_domains * (1 + 3)      # two runs a leg; 1 and 3 a domain
+    legs = {}
+    for leg in ("qp_only", "cbf_sqp"):
+        legs[leg] = {k: summ[leg][k] for k in (
+            "success_rate", "mean_min_clearance", "nonfinite_lanes",
+            "qp_ok_frac", "wall_s_first", "wall_s_steady", "planner_s",
+            "loop_s", "domains_per_s")}
+        legs[leg]["record_success_rate"] = record[leg]["success_rate"]
+        legs[leg]["record_qp_ok_frac"] = record[leg]["qp_ok_frac"]
+    rec = {"phase": "campaign", "what": "A/B legs", "scenarios": n_scen,
+           "agents": 2, "domains": n_domains, "loop_size": CAMPAIGN_LOOP,
+           "dtype": "float32", "formulation": summ["formulation"],
+           "K1a_launches": ab_launches, "expected_K1a_launches": expect,
+           **legs,
+           "bound": ("nonfinite_lanes 0; success_rate within 0.01 of "
+                     "docs/CAMPAIGN_1024.json; qp_ok_frac >= the record's "
+                     "- 0.005; CBF-SQP success above QP-only's; exact K1a "
+                     "launches"), "device": smi}
+    rec["ok"] = (ab_launches == expect and all(
+        v["nonfinite_lanes"] == 0
+        and abs(v["success_rate"] - v["record_success_rate"]) <= 0.01
+        and v["qp_ok_frac"] >= v["record_qp_ok_frac"] - 0.005
+        for v in legs.values())
+        and legs["cbf_sqp"]["success_rate"] > legs["qp_only"]["success_rate"])
+    emit(rec)
+    check(rec["ok"], f"campaign A/B legs: {rec}")
+
+    # where the card's time goes: the first 8 domains (2 stand, 6 trot) of
+    # each leg on the planned lanes, under torch.profiler
+    few = campaign.CampaignConfig(n_agents=2, n_domains=8)
+    for leg in ("qp_only", "cbf_sqp"):
+        cfg = run_campaign_ab.leg_config(run_campaign_ab.LEGS[leg])
+        run = functools.partial(campaign.run_domains, cfg, qp_cfg, few, p32,
+                                *lanes_ref, pobs_real, None, "fused")
+        run()
+        wall, busy, by_name = device_profile(run)
+        k1a = sum(v for k, v in by_name.items() if "qp_fused_noeq" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        emit({"phase": "campaign", "what": "profile", "leg": leg,
+              "domains": few.n_domains, "lanes": 2 * n_scen,
+              "wall_ms_profiled": wall * 1e3, "device_busy_ms": busy,
+              "idle_share": 1.0 - busy / (wall * 1e3),
+              "k1a_ms": k1a, "k1a_share_of_busy": k1a / busy if busy else None,
+              "top_kernels_ms": top, "device": smi})
+    del lanes_ref
+
+    # (c) the CBF-SQP leg in float64 on the same fields: the share of lanes
+    # whose success agrees with float32
+    t0 = time.perf_counter()
+    res64 = campaign._run_campaign_batch_core(
+        run_campaign_ab.leg_config(True), qp_cfg,
+        campaign.CampaignConfig(n_agents=2, n_domains=n_domains), ref_cfg, p64,
+        pobs.double(), pobs_real.double(), None, "fused")
+    torch.cuda.synchronize()
+    s32 = results["cbf_sqp"].success
+    rec = {"phase": "campaign", "what": "f32 vs f64", "leg": "cbf_sqp",
+           "wall_s": time.perf_counter() - t0,
+           "success_rate_f64": res64.success.double().mean().item(),
+           "success_rate_f32": s32.double().mean().item(),
+           "success_agreement": (res64.success == s32).double().mean().item(),
+           "nonfinite_lanes_f64": int((~torch.isfinite(
+               res64.min_clearance)).sum()),
+           "bound": "success agrees on >= 0.99 of the lanes", "device": smi}
+    rec["ok"] = rec["success_agreement"] >= 0.99
+    emit(rec)
+    check(rec["ok"], f"campaign float32 vs float64: {rec}")
+    del res64, results
+
+    # (d) K1a against its plain version on the campaign's own QPs: domains
+    # 60 and 61 of the CBF-SQP leg, lanes interleaved (mixed contacts,
+    # every scenario's own field and state), B 2048; the cold mi 28 QP and
+    # the first SCP QP (mi 52), in float32 (phase 3's bounds) and float64
+    # (phase "mixed"'s); the kernel's ms per launch in float32.
+    check(set(captured) == {60, 61}, "domains 60 and 61 were not captured")
+    (a60, kw60), (a61, kw61) = captured[60], captured[61]
+    n_lanes = a60[1].shape[0]
+    even = torch.arange(n_lanes, device=dev) % 2 == 0
+
+    def mix(x, y):
+        if isinstance(x, tuple):
+            return type(x)(*(mix(u, v) for u, v in zip(x, y)))
+        sel = even.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(sel, x, y)
+
+    args = [mix(x, y) for x, y in zip(a60, a61)]
+    kw = dict(kw60, state_other=mix(kw60["state_other"],
+                                    kw61["state_other"]))
+    cfg = run_campaign_ab.leg_config(True)
+    n_traj = (cfg.n_state + cfg.n_input) * cfg.horizon
+    k1_cases, k1_f64_err = {}, 0.0
+    eps_mask = 1.0 if kw["agent_circle_eps"] > 0 else 0.0
+    for dtype in (f64, f32):
+        lanes = [type(a)(*(t.to(dtype) if t.is_floating_point() else t
+                           for t in a)) if isinstance(a, tuple)
+                 else a.to(dtype) for a in args]
+        qp, cases = cycle_qps(cfg, qp_cfg, lanes,
+                              kw["state_other"][:, :2].to(dtype),
+                              (("campaign_scp_mi52", (1.0, eps_mask)),),
+                              cold="campaign_cold_mi28")
+        for case, G, h, x0 in cases:
+            xk, _, _, stk = qp_fused.solve_lanes_last(qp.P, qp.c, G, h,
+                                                      qp_cfg, x0=x0)
+            xp, _, _, stp = qp_fused.solve_lanes_last_plain(
+                qp.P, qp.c, G, h, qp_cfg, x0=x0)
+            torch.cuda.synchronize()
+            conv_k, conv_p = stk[2] > 0.5, stp[2] > 0.5
+            both = conv_k & conv_p
+            it_k, it_p = stk[3], stp[3]
+            traj_k = mpc_batch.expand_ll(qp, xk)[:, :n_traj]
+            traj_p = mpc_batch.expand_ll(qp, xp)[:, :n_traj]
+            dtraj = (traj_k - traj_p).abs()
+            rec = {"phase": "campaign", "what": "K1a vs plain", "case": case,
+                   "dtype": str(dtype), "mi": G.shape[0], "lanes": n_lanes,
+                   "contacts": sorted({tuple(r) for r in
+                                       args[4].tolist()}),
+                   "max_abs_dx_converged": (
+                       (xk - xp).abs()[:, both].max().item()
+                       if both.any() else 0.0),
+                   "converged_kernel": conv_k.double().mean().item(),
+                   "converged_plain": conv_p.double().mean().item(),
+                   "lane_iters_equal": (it_k == it_p).double().mean().item(),
+                   "iters_kernel": [it_k.min().item(), it_k.mean().item(),
+                                    it_k.max().item()],
+                   "max_iters_plain": it_p.max().item()}
+            if dtype == f64:
+                rec["bound"] = ("lanes converged in both: max|dx| <= 1e-9; "
+                                "equal converged flags and per-lane "
+                                "iterations")
+                rec["ok"] = (rec["max_abs_dx_converged"] <= 1e-9
+                             and bool((conv_k == conv_p).all())
+                             and rec["lane_iters_equal"] == 1.0)
+                k1_f64_err = max(k1_f64_err, rec["max_abs_dx_converged"])
+            else:
+                rel = (dtraj / traj_p.abs().clamp(min=1.0))[both]
+                rec["max_rel_dtraj_converged"] = (rel.max().item()
+                                                  if rel.numel() else 0.0)
+                rec["bound"] = ("lanes converged in both: trajectory |d| <= "
+                                "1e-3 max(1,|traj|); kernel converged share "
+                                ">= plain's - 0.5 points; equal max "
+                                "iterations")
+                rec["ok"] = (rec["max_rel_dtraj_converged"] <= 1e-3
+                             and rec["converged_kernel"]
+                             >= rec["converged_plain"] - 0.005
+                             and it_k.max().item() == it_p.max().item())
+
+                def kern(G=G, h=h, x0=x0, qp=qp):
+                    return qp_fused.solve_lanes_last(qp.P, qp.c, G, h,
+                                                     qp_cfg, x0=x0)
+
+                def plain(G=G, h=h, x0=x0, qp=qp):
+                    return qp_fused.solve_lanes_last_plain(qp.P, qp.c, G, h,
+                                                           qp_cfg, x0=x0)
+
+                p1 = event_ms(plain, 3)
+                t1 = event_ms(kern, REPS)
+                t2 = event_ms(kern, REPS)
+                p2 = event_ms(plain, 3)
+                rec.update(kernel_ms=[t1, t2], plain_ms=[p1, p2])
+                k1_cases[case] = dict(
+                    mi=G.shape[0], lanes=n_lanes, ms=(t1 + t2) / 2,
+                    plain_ms=(p1 + p2) / 2,
+                    iters=rec["iters_kernel"],
+                    **bound(*k1a_work(qp.P, qp.c, G, h, x0, it_k,
+                                      qp_cfg.kkt_refine_iters)))
+            rec["device"] = smi
+            emit(rec)
+            check(rec["ok"], f"K1a on the campaign's QPs: {rec}")
+    del captured, args, kw, a60, a61, kw60, kw61
+
+    # (e) the template_campaign golden through K3a and K3b
+    k3_launches = campaign_golden_check(dev, smi)
+
+    # (f) one scaling line: the CBF-SQP leg at S 4096 (8192 lanes), fields
+    # drawn from seed 0
+    qp_fused.solve_lanes_last.launches = 0
+    summ4, _ = run_campaign_ab.main(
+        SCALING_SCENARIOS, n_domains, seed=0, device=dev,
+        loop_size=CAMPAIGN_LOOP, legs=("cbf_sqp",),
+        out=out_dir / f"CAMPAIGN_TORCH_{SCALING_SCENARIOS}.json")
+    scale_launches = qp_fused.solve_lanes_last.launches
+    s4 = summ4["cbf_sqp"]
+    rec = {"phase": "campaign", "what": "scaling", "leg": "cbf_sqp",
+           "scenarios": SCALING_SCENARIOS, "lanes": 2 * SCALING_SCENARIOS,
+           "domains": n_domains,
+           "K1a_launches": scale_launches,
+           **{k: s4[k] for k in ("success_rate", "nonfinite_lanes",
+                                 "qp_ok_frac", "wall_s_first",
+                                 "wall_s_steady", "planner_s", "loop_s",
+                                 "domains_per_s")},
+           "bound": "nonfinite_lanes 0; exact K1a launches", "device": smi}
+    rec["ok"] = (s4["nonfinite_lanes"] == 0
+                 and scale_launches == 2 * 3 * n_domains)
+    emit(rec)
+    check(rec["ok"], f"campaign scaling line: {rec}")
+    emit({"phase": "campaign", "seconds": time.perf_counter() - t_phase})
+    return {"K1a": {"campaign_ab": ab_launches,
+                    "campaign_scaling": scale_launches},
+            "K3": k3_launches, "k1a_cases": k1_cases,
+            "k1a_f64_err": k1_f64_err}
 
 
 def main() -> int:
@@ -625,7 +1013,7 @@ def main() -> int:
                                         condensed=True, **kw)
 
     # ------------------------- 3. kernel vs plain ------------------------- #
-    def cycle_qps(dtype):
+    def bench_qps(dtype):
         return nmpc_cycle_qps(cfg, strict, inputs, p_start, pobs, dev, dtype)
 
     # In float32 the kernel and its plain version round differently. Where
@@ -641,7 +1029,7 @@ def main() -> int:
     for dtype, configs in ((torch.float64, (("strict", strict),)),
                            (f32, (("relaxed", relaxed),
                                             ("strict", strict)))):
-        qp, cases = cycle_qps(dtype)
+        qp, cases = bench_qps(dtype)
         if dtype == torch.float64:
             qp64, cases64 = qp, cases
         for cfg_name, qp_cfg in configs:
@@ -799,7 +1187,7 @@ def main() -> int:
               "converged": out.qp_converged.double().mean().item(),
               "qp_iters": int(out.qp_iters), "device": smi})
 
-    qp, cases = cycle_qps(f32)
+    qp, cases = bench_qps(f32)
     k1_ms, k1_stat = {}, {}
     for case, G, h, x0 in cases:                # mi 28 cold, mi 48 / 52 warm
         def kern():
@@ -1506,6 +1894,18 @@ def main() -> int:
             weighted_over={f"k{k}" + (f"_r{r}" if r else ""): n
                            for (_, k, r), n in shapes.items()},
             launches_by_path={"generic_cycle": launches}))
+    # ------------------------- 12. the campaign -------------------------- #
+    camp = campaign_phase(dev, smi)
+    k1a_row = kernels[0]
+    k1a_row["launches_by_path"].update(camp["K1a"])
+    k1a_row["by_case"].update(camp["k1a_cases"])
+    k1a_row["max_abs_err"] = max(k1a_row["max_abs_err"], camp["k1a_f64_err"])
+    for row in kernels:
+        key = {"pallas_cholesky": "K3a", "pallas_cho_solve": "K3b"}.get(
+            row["name"])
+        if key:
+            row["launches_by_path"]["template_campaign_golden"] = \
+                camp["K3"][key]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

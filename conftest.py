@@ -24,9 +24,18 @@ xfail canary of an upstream JAX bug comes after them, on the worker that
 frees up first, behind its second long test, so that until near the end
 every progress mark of the run is a pass or a skip. Nothing else about the
 order changes.
+
+A time limit ends the run with SIGTERM. Python's default action for it
+kills the controller at once, before pytest writes any report, so a cut
+run leaves no JUnit XML and only its progress marks tell what ran. In the
+controller (not in an xdist worker) SIGTERM therefore ends the session as
+Ctrl-C does: pytest stops, takes down its workers and writes its reports,
+the JUnit XML with the tests that completed. A test that did not finish is
+not reported; the run still ends at the limit with the limit's exit code.
 """
 
 import gc
+import signal
 import sys
 
 MAP_LIMIT = 20000
@@ -53,6 +62,15 @@ RUN_LAST = (
     "tests/test_jax_cpu_transpose_bug.py::"
     "test_upstream_transpose_constant_folding",
 )
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt(f"signal {signum}")
+
+
+def pytest_configure(config):
+    if not hasattr(config, "workerinput"):       # the controller only
+        signal.signal(signal.SIGTERM, _interrupt)
 
 
 def _map_count():

@@ -4,7 +4,8 @@ The system has no learned weights; its state is what a user hands it or
 gets back: the NMPC carry (`MpcCarry`) and reference (`RefTraj`), the
 whole-body loop's plant, agent, contact-estimator and planner states
 (`SimState`, `AgentState`, `ConState`, `PlannerState`) and its result
-(`LoopResult`), obstacle fields, footholds and QP operands. `from_numpy`
+(`LoopResult`), a campaign's result (`CampaignResult`), obstacle fields,
+footholds and QP operands. `from_numpy`
 turns any tree of arrays (numpy, or anything `np.asarray` accepts, such as
 the JAX package's arrays) into tensors, and the JAX package's NamedTuples
 into the port's of the same name and fields; `to_numpy` is the way back.
@@ -17,6 +18,7 @@ import torch
 
 from srbx_torch import agent, lowlevel, motion, mpc, ocp, refplan
 from srbx_torch.estimation import contact
+from srbx_torch.eval import campaign
 from srbx_torch.ops import qp_batch
 from srbx_torch.sim import closedloop, wholebody
 
@@ -27,7 +29,7 @@ _PORT_TYPES = {
                 agent.TickCtx, contact.ConState, motion.PlannerState,
                 closedloop.LoopResult, lowlevel.VcOut, lowlevel.TrajIn,
                 lowlevel.LLOut, lowlevel.LLQpData, lowlevel.LLCtx,
-                qp_batch.BatchSolution)
+                qp_batch.BatchSolution, campaign.CampaignResult)
 }
 
 

@@ -1,0 +1,2 @@
+"""Evaluation: the template A/B success-rate campaign (`campaign`), its
+summary statistics (`analysis`) and its runner (`run_campaign_ab`)."""

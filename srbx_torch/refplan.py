@@ -3,9 +3,12 @@
 Counterpart of `srbx/refplan.py`: a damped double-integrator rollout of
 `loop_size` steps under goal attraction, obstacle repulsion and
 Lennard-Jones inter-agent forces, downsampled into the per-grid reference
-knots (Pr, Prd) that the NMPC cycle slices its window from. The rollout is a
-Python loop of small tensor operations; it runs once, before any control
-cycle.
+knots (Pr, Prd) that the NMPC cycle slices its window from. One call rolls
+one obstacle field or a batch of them (a leading scenario axis, the
+campaign's). The rollout is a loop of small tensor operations on static
+buffers; on the card one knot's steps are captured in a CUDA graph and
+replayed, the analogue of the JAX package's `lax.scan`. It runs once,
+before any control cycle.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ from srbx_torch.config import RefPlanConfig
 
 
 class RefTraj(NamedTuple):
-    pr: torch.Tensor    # (2*n_agents, T) downsampled positions
-    prd: torch.Tensor   # (2*n_agents, T) downsampled velocities
+    pr: torch.Tensor    # ([S,] 2*n_agents, T) downsampled positions
+    prd: torch.Tensor   # ([S,] 2*n_agents, T) downsampled velocities
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,18 +56,19 @@ def _norm(v):
     return torch.sqrt((v * v).sum(-1))
 
 
-def _forces(cfg: RefPlanConfig, pos, pobs):
-    """APF force per agent. pos: (n_agents, 2); pobs: (n_obs, 2).
+def _forces(cfg: RefPlanConfig, pos, pobs, goal, not_self):
+    """APF force per agent. pos: (..., n_agents, 2); pobs: (..., n_obs, 2)
+    with the same leading (scenario) axes; goal (2,) and not_self
+    (n_agents, n_agents), 0 on the diagonal, are built once per rollout.
 
     Goal attraction, obstacle repulsion inside dmin, Lennard-Jones 6-12
     inter-agent interaction, and zero force within 1 mm of the goal.
     """
-    goal = torch.tensor(cfg.goal, dtype=pos.dtype, device=pos.device)
     to_goal = pos - goal
-    d_goal = _norm(to_goal)[:, None]
+    d_goal = _norm(to_goal)[..., None]
     f_att = -cfg.alpha * to_goal / d_goal.clamp(min=1e-12)
 
-    diff = pos[:, None, :] - pobs[None, :, :]          # (n_agents, n_obs, 2)
+    diff = pos[..., :, None, :] - pobs[..., None, :, :]  # (..., na, n_obs, 2)
     d = _norm(diff)
     d_safe = d.clamp(min=1e-9)
     rep_mag = torch.where(
@@ -72,22 +76,20 @@ def _forces(cfg: RefPlanConfig, pos, pobs):
         cfg.eta * (1.0 / d_safe - 1.0 / cfg.dmin) / _ipow(d_safe, 2),
         0.0,
     )
-    f_rep = (rep_mag[..., None] * diff / d_safe[..., None]).sum(1)
+    f_rep = (rep_mag[..., None] * diff / d_safe[..., None]).sum(-2)
 
     # Self-pairs are masked out, but their distance is set to a benign value
     # BEFORE the 7th and 13th powers: at the tiny guard d^13 underflows f32
     # to 0, and the inf that follows would turn into NaN under the 0-mask.
-    adiff = pos[:, None, :] - pos[None, :, :]
+    adiff = pos[..., :, None, :] - pos[..., None, :, :]
     ad = _norm(adiff)
-    not_self = 1.0 - torch.eye(pos.shape[0], dtype=pos.dtype,
-                               device=pos.device)
     ad_safe = torch.where(not_self > 0, ad, 1.0).clamp(min=1e-4)
     eps, sig = cfg.lj_epsilon, cfg.lj_sigma
     lj_mag = -4.0 * eps * (
         6.0 * sig**6 / _ipow(ad_safe, 7) - 12.0 * sig**12 / _ipow(ad_safe, 13)
     )
     f_agent = ((lj_mag * not_self)[..., None] * adiff
-               / ad_safe[..., None]).sum(1)
+               / ad_safe[..., None]).sum(-2)
 
     f = f_att + f_rep + f_agent
     return torch.where(d_goal < 0.001, 0.0, f)
@@ -107,50 +109,83 @@ def resolve_matrices(cfg: RefPlanConfig, dtype=torch.float64, device=None):
             torch.as_tensor(bd, dtype=dtype, device=device))
 
 
-def _make_step(cfg: RefPlanConfig, ad, bd, pobs_t, dtype):
-    """One APF rollout step: forces, ramp-up, damped double integrator."""
-
-    def step(pos, vel, i: int):
-        f = _forces(cfg, pos, pobs_t)
-        if cfg.ramp_up_iters > 0:
-            scale = torch.tensor(float(i), dtype=dtype) / cfg.ramp_up_iters
-            f = f * scale.clamp(max=1.0).to(f.device)
-        pos_n = ad[0, 0] * pos + ad[0, 1] * vel + bd[0, 0] * f
-        vel_n = ad[1, 1] * vel + bd[1, 0] * f
-        return pos_n, vel_n
-
-    return step
+def _replay(block, n: int, device):
+    """Run `block` n times: eagerly off the card; on the card once eagerly
+    (which also loads its kernels), then captured in a CUDA graph (the
+    capture runs nothing) and replayed n - 1 times. The block's buffers are
+    the graph's static memory."""
+    if device.type != "cuda" or n <= 1:
+        for _ in range(n):
+            block()
+        return
+    block()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        block()
+    for _ in range(n - 1):
+        graph.replay()
 
 
 def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
              device=None) -> RefTraj:
     """Roll the APF planner and downsample.
 
-    p_start: (2*n_agents,) starting xy per agent; pobs: (2, n_obs).
-    Returns RefTraj with T = loop_size // downsample knots (the reference's
-    2-knot lead-in is reproduced by shifting and edge-padding the tail).
-    device=None means the CUDA card.
+    p_start: (2*n_agents,) starting xy per agent; pobs: (2, n_obs), or
+    (S, 2, n_obs) for S obstacle fields rolled at once (the JAX package's
+    `vmap(generate)` over fields; each field's arithmetic is the same, in
+    the same order). Returns RefTraj with T = ceil(loop_size / downsample)
+    knots, pr and prd (2*n_agents, T), or (S, 2*n_agents, T) for a batch
+    of fields (the reference's 2-knot lead-in is reproduced by shifting and
+    edge-padding the tail). On the card the rollout is one CUDA graph of
+    `downsample` steps, replayed once per knot. device=None means the CUDA
+    card.
     """
-    device = "cuda" if device is None else device
+    device = torch.device("cuda" if device is None else device)
     na = cfg.n_agents
     ad, bd = resolve_matrices(cfg, dtype, device)
-    pobs_t = pobs.T.to(dtype=dtype, device=device)
-    pos = p_start.reshape(na, 2).to(dtype=dtype, device=device)
+    goal = torch.tensor(cfg.goal, dtype=dtype, device=device)
+    not_self = 1.0 - torch.eye(na, dtype=dtype, device=device)
+    pobs = pobs.to(dtype=dtype, device=device)
+    lead = pobs.shape[:-2]                              # () or (S,)
+    pobs_t = pobs.transpose(-1, -2).contiguous()        # (..., n_obs, 2)
+    # a copy: the rollout writes its state in place
+    pos = p_start.reshape(na, 2).to(dtype=dtype, device=device).expand(
+        *lead, na, 2).clone(memory_format=torch.contiguous_format)
     vel = torch.zeros_like(pos)
 
-    step = _make_step(cfg, ad, bd, pobs_t, dtype)
-    pos_hist, vel_hist = [], []
-    for i in range(cfg.loop_size):
-        if i % cfg.downsample == 0:        # the pre-step state, every ds-th
-            pos_hist.append(pos)
-            vel_hist.append(vel)
-        pos, vel = step(pos, vel, i)
-    ds = torch.stack(pos_hist)                          # (T, na, 2)
-    dsv = torch.stack(vel_hist)
-    ds = torch.cat([ds[2:], ds[-1:], ds[-1:]], 0)
-    dsv = torch.cat([dsv[2:], dsv[-1:], dsv[-1:]], 0)
-    pr = ds.permute(1, 2, 0).reshape(2 * na, -1)
-    prd = dsv.permute(1, 2, 0).reshape(2 * na, -1)
+    n_knots = -(-cfg.loop_size // cfg.downsample)
+    pos_hist = torch.empty((n_knots,) + pos.shape, dtype=dtype, device=device)
+    vel_hist = torch.empty_like(pos_hist)
+    pos_hist[0] = pos                      # the pre-step state, every ds-th
+    vel_hist[0] = vel
+    step_i = torch.zeros((), dtype=dtype, device=device)   # the step index
+    knot = torch.ones(1, dtype=torch.int64, device=device)  # the next knot
+
+    def block():
+        """`cfg.downsample` steps, then the state recorded as the next
+        knot, in place on the buffers above: static shapes and no host
+        values, so that on the card it is captured in a CUDA graph."""
+        for _ in range(cfg.downsample):
+            f = _forces(cfg, pos, pobs_t, goal, not_self)
+            if cfg.ramp_up_iters > 0:
+                f = f * (step_i / cfg.ramp_up_iters).clamp(max=1.0)
+                step_i.add_(1.0)
+            pos_n = ad[0, 0] * pos + ad[0, 1] * vel + bd[0, 0] * f
+            vel.copy_(ad[1, 1] * vel + bd[1, 0] * f)
+            pos.copy_(pos_n)
+        pos_hist.index_copy_(0, knot, pos[None])
+        vel_hist.index_copy_(0, knot, vel[None])
+        knot.add_(1)
+
+    # the steps after the last recorded knot change nothing recorded
+    _replay(block, n_knots - 1, device)
+
+    ds = torch.cat([pos_hist[2:], pos_hist[-1:], pos_hist[-1:]], 0)
+    dsv = torch.cat([vel_hist[2:], vel_hist[-1:], vel_hist[-1:]], 0)
+    # (T, ..., na, 2) -> (..., na, 2, T) -> (..., 2 na, T)
+    perm = tuple(range(1, ds.dim())) + (0,)
+    pr = ds.permute(perm).reshape(*lead, 2 * na, -1)
+    prd = dsv.permute(perm).reshape(*lead, 2 * na, -1)
     return RefTraj(pr, prd)
 
 

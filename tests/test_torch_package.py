@@ -23,6 +23,7 @@ from srbx import mpc_batch as jmpc_batch
 from srbx import refplan as jrefplan
 from srbx.config import MpcConfig, QpConfig
 from srbx.estimation import contact as jcontact
+from srbx.eval import campaign as jcampaign
 from srbx.ops import qp_batch as jqp_batch
 from srbx.ops import qp_fused as jqp_fused
 from srbx.ops import spd as jspd
@@ -30,6 +31,7 @@ from srbx.sim import closedloop as jclosedloop
 from srbx.sim import wholebody as jwb
 from srbx_torch import agent, config, convert, motion, mpc, mpc_batch, refplan
 from srbx_torch.estimation import contact
+from srbx_torch.eval import campaign
 from srbx_torch.models import a1
 from srbx_torch.ocp import default_footholds
 from srbx_torch.ops import _build, qp_batch, qp_fused, spd
@@ -48,7 +50,10 @@ def test_import_pulls_in_no_jax():
     """Importing every module of srbx_torch loads neither jax nor any
     module of the JAX package `srbx`."""
     assert {"srbx_torch.sim.closedloop", "srbx_torch.ops.spd",
-            "srbx_torch.models.rbd", "srbx_torch.lowlevel"} <= set(MODULES)
+            "srbx_torch.models.rbd", "srbx_torch.lowlevel", "srbx_torch.gait",
+            "srbx_torch.eval", "srbx_torch.eval.campaign",
+            "srbx_torch.eval.analysis",
+            "srbx_torch.eval.run_campaign_ab"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -103,8 +108,11 @@ def _default(value):
     (qp_fused.solve, jqp_fused.solve),
     (qp_fused.solve_lanes_last, jqp_fused.solve_lanes_last),
     (spd.solve, jspd.solve), (spd.inverse, jspd.inverse),
+    (campaign.run_campaign_batch, jcampaign.run_campaign_batch),
+    (campaign._run_campaign_batch_core, jcampaign._run_campaign_batch_core),
 ], ids=["run_nmpc_batch", "qp_batch_solve", "run_batch", "qp_fused_solve",
-        "solve_lanes_last", "spd_solve", "spd_inverse"])
+        "solve_lanes_last", "spd_solve", "spd_inverse", "run_campaign_batch",
+        "run_campaign_batch_core"])
 def test_entry_points_keep_the_jax_defaults(mine, theirs):
     """Every parameter that a port entry point shares with its JAX
     counterpart has the same default, so that a call ported from the JAX
@@ -117,6 +125,26 @@ def test_entry_points_keep_the_jax_defaults(mine, theirs):
         {n: _default(ref[n].default) for n in shared}
 
 
+@pytest.mark.parametrize("mine,theirs,ours_only,theirs_only", [
+    (campaign.run_campaign_batch, jcampaign.run_campaign_batch,
+     ["generator", "dtype", "device"], ["key", "tile"]),
+    (campaign._run_campaign_batch_core, jcampaign._run_campaign_batch_core,
+     ["generator"], ["k_run", "tile"]),
+], ids=["run_campaign_batch", "run_campaign_batch_core"])
+def test_campaign_signatures_differ_only_as_documented(mine, theirs,
+                                                       ours_only,
+                                                       theirs_only):
+    """The campaign entries take the JAX arguments in the JAX order, with a
+    torch.Generator where JAX takes a key and without the TPU-only tile;
+    run_campaign_batch adds the run's dtype and device."""
+    ours = list(inspect.signature(mine).parameters)
+    ref = list(inspect.signature(theirs).parameters)
+    assert [n for n in ours if n not in ref] == ours_only
+    assert [n for n in ref if n not in ours] == theirs_only
+    assert [n for n in ours if n in ref] == [n for n in ref if n in ours]
+    assert ours.index(ours_only[0]) == ref.index(theirs_only[0])
+
+
 def test_entry_points_default_to_the_card():
     """device=None means the CUDA card: without one, the call fails rather
     than running on the CPU."""
@@ -124,7 +152,14 @@ def test_entry_points_default_to_the_card():
     calls = [lambda: convert.from_numpy(np.zeros(2)),
              lambda: refplan.resolve_matrices(cfg),
              lambda: refplan.generate(cfg, torch.zeros(4),
-                                      torch.zeros(2, 20))]
+                                      torch.zeros(2, 20)),
+             lambda: campaign.sample_obstacles(
+                 torch.Generator().manual_seed(0), 2, 20),
+             lambda: campaign.run_campaign_batch(
+                 MpcConfig(use_sqp=False, condensed=True, elide_box_rows=True,
+                           elide_simplex=True), QpConfig(),
+                 campaign.CampaignConfig(n_domains=1), cfg, torch.zeros(4),
+                 torch.Generator().manual_seed(0), 1)]
     for call in calls:
         if torch.cuda.is_available():
             out = call()
@@ -283,6 +318,23 @@ def test_from_numpy_to_numpy_round_trip():
     for a, b in ((back["carry"].gait_domain, jcarry.gait_domain),
                  (back["carry"].alpha_buffer, jcarry.alpha_buffer),
                  (back["ref"].pr, jref.pr), (back["pobs"], tree["pobs"])):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_campaign_result_round_trip():
+    """The JAX package's CampaignResult in numpy form becomes the port's,
+    with the same fields and values, and comes back."""
+    rng = np.random.default_rng(2)
+    res = jcampaign.CampaignResult(rng.random((3, 2)) > 0.5,
+                                   rng.normal(size=(3, 2)),
+                                   rng.normal(size=(3, 2)),
+                                   rng.normal(size=(3, 2, 2)),
+                                   rng.random(3), rng.normal(size=(3, 4, 2, 2)))
+    got = convert.from_numpy(res, device="cpu")
+    assert isinstance(got, campaign.CampaignResult)
+    assert got._fields == res._fields and got.success.dtype == torch.bool
+    for a, b in zip(convert.to_numpy(got), res):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
 
