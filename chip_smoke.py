@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Three paths, each driven through the entry point a user calls:
+Five paths, each driven through the entry point a user calls:
 
 * the batched CBF-NMPC control cycle (`srbx_torch.mpc_batch.run_nmpc_batch`
   on its lanes-last fused branch, kernel K1a) at the benchmark operating
@@ -12,7 +12,7 @@ Three paths, each driven through the entry point a user calls:
 * the whole-body 1 kHz closed loop (`srbx_torch.sim.closedloop.run_batch`:
   the LL QP through kernel K1b, the SPD inverses through K2b, the physics
   solves through K2a, the NMPC at each domain boundary through K1a) at
-  B = 4096 lanes, float32: 800 stand-up ticks and 2 trot domains of 172;
+  B = 4096 lanes, float32: 300 stand-up ticks and 1 trot domain of 172;
 * the NMPC cycle on its generic branch at the reference shape
   (`run_nmpc_batch(backend="pallas", condensed=False)`: QPs of n 41, me 28,
   mi 92 and 112 through the step-fused batched IPM, with the Cholesky and
@@ -22,7 +22,13 @@ Three paths, each driven through the entry point a user calls:
   (`srbx_torch.eval.run_campaign_ab.main`: the batched APF planner, then
   120 gait domains of one lanes-last NMPC cycle for all lanes through K1a)
   at the runner's size: 1024 scenarios x 2 agents, 40,000 planner steps,
-  float32, QP-only and CBF-SQP, on the JAX package's key-0 fields.
+  float32, QP-only and CBF-SQP, on the JAX package's key-0 fields;
+* the scenario-batched 4-agent whole-body team
+  (`srbx_torch.eval.run_team`, through `closedloop.run_team_batch`) at its
+  production point: S 1024 scenarios x 4 agents = 4096 lanes, float32, the
+  condensed lanes-last NMPC with the neighbour circle (K1a), the reduced LL
+  QP after 5 Ruiz sweeps (K1b at n 25 / me 12), K2a and K2b; 300 stand
+  ticks and 3 domains of 172.
 
 Phases, each printing JSON lines:
 
@@ -49,7 +55,8 @@ Phases, each printing JSON lines:
                test), K2a and K2b bitwise on the loop's mass and swing
                matrices;
                then K1b on 4093 mixed lanes as in phase 3;
-7. wholebody - run_batch at B = 4096 float32: finite, COM height, exact
+7. wholebody - run_batch at B = 4096 float32 (300 stand ticks, 1
+               domain): finite, COM height, exact
                launch counts, LL ticks/s; and the first 64 lanes in float64
                through the kernels and through the plain versions;
 8. wb_times  - K1b, K2a and K2b at the loop's shapes against their plain
@@ -90,7 +97,22 @@ Phases, each printing JSON lines:
                mi 28 cold and mi 52 warm) in float32 and float64, with its
                ms per launch; (e) the template_campaign golden through K3a
                and K3b (backend "pallas", float64); (f) the CBF-SQP leg at
-               S 4096 (domains_per_s).
+               S 4096 (domains_per_s);
+13. team     - (a) the team at its production point through the runner
+               (fields of torch seed 7, loop 20,000): finite, LL-QP ok >=
+               0.99, every LL QP at (25, 12), K1b one launch a tick, K1a two
+               a domain, K2a and K2b two a tick; robot-ticks/s, the
+               planner's and the loop's seconds, the minimum inter-agent
+               distance and CBF margin; (b) a torch.profiler run of 5 trot
+               ticks (the card's busy and idle shares, K1b's and K2's share)
+               and the physics of 5 ticks alone; (c) K1b (25, 12) against
+               its plain version: random reduced QPs in float64 (1e-9,
+               equal flags and iterations), the loop's own reduced QPs after
+               Ruiz in float64 (the same) and float32 (converged share
+               within 0.5 points, max |d tau| reported), 4093 mixed lanes
+               as phase "mixed", and its ms per launch; (d) the team golden
+               through K3a/K3b, K2a/K2b (backend "pallas", float64) at the
+               golden's bounds.
 
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
@@ -99,6 +121,7 @@ or outside the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import re
@@ -120,8 +143,13 @@ WB_BATCH = 4096          # whole-body lanes
 WB_CROSS_LANES = 64      # whole-body lanes run in float64, kernels vs plain
 CAMPAIGN_LOOP = 40_000   # the A/B runner's APF rollout steps
 SCALING_SCENARIOS = 4096  # the campaign's scaling line
+TEAM_SCENARIOS = 1024    # the team phase: S x 4 agents = 4096 lanes
+TEAM_DEPTH = (300, 3, 172)  # its stand ticks, domains and ticks a domain
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+
+
+_START = time.perf_counter()
 
 
 class SmokeFailure(RuntimeError):
@@ -434,6 +462,9 @@ def check(cond, what):
 
 
 def emit(rec):
+    """One JSON line; records of a phase carry the seconds since start."""
+    if "phase" in rec:
+        rec = dict(rec, elapsed_s=time.perf_counter() - _START)
     print(json.dumps(rec), flush=True)
 
 
@@ -902,6 +933,308 @@ def campaign_phase(dev, smi):
             "k1a_f64_err": k1_f64_err}
 
 
+def team_golden_check(dev, smi, counters):
+    """The `team` golden (docs/golden/golden.json, scripts/make_golden.py:
+    214-238) on the card: 1 scenario x 4 agents, the uncondensed SCP NMPC,
+    QpConfig(), the reduced LL build, float64, 300 stand ticks and 2
+    domains, backend "pallas" (the step-fused IPM through K3a and K3b for
+    the NMPC and the LL QP, K2a and K2b for the physics and the inverses).
+    Its bounds are the golden's own: com_ends, margins and final_q 1e-5,
+    llok 1e-9. Returns the kernels' launches."""
+    from srbx_torch import refplan
+    from srbx_torch.config import (LowLevelConfig, MotionConfig, MpcConfig,
+                                   QpConfig)
+    from srbx_torch.eval import run_team
+    from srbx_torch.models import a1
+    from srbx_torch.sim import closedloop, wholebody as wb
+
+    with open(ROOT / "docs" / "golden" / "golden.json") as f:
+        gold = json.load(f)["team"]
+    f64 = torch.float64
+    p_start = torch.tensor(run_team.P_START, dtype=f64, device=dev)
+    pobs = torch.stack([torch.linspace(3.0, 8.0, 20, dtype=f64),
+                        torch.linspace(-2.0, 2.0, 20, dtype=f64)]).to(dev)
+    ref = refplan.generate(refplan.four_agent_config(loop_size=20_000),
+                           p_start, pobs, device=dev)
+    loop = closedloop.LoopConfig(stand_ticks=300, n_domains=2,
+                                 ticks_per_domain=172)
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    sims, com_ends, margins, llok = closedloop.run_team_batch(
+        MpcConfig(use_sqp=True, sqp_iters=1), LowLevelConfig(),
+        MotionConfig(), QpConfig(), wb.SimConfig(), loop, a1.model(),
+        ref.pr.reshape(1, 4, 2, -1), ref.prd.reshape(1, 4, 2, -1),
+        p_start.reshape(1, 4, 2), pobs[None], dtype=f64, backend="pallas",
+        ll_reduced=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    ticks = loop.stand_ticks + loop.n_domains * loop.ticks_per_domain
+    diff = {name: float(np.abs(got.cpu().numpy()
+                               - np.asarray(gold[name])).max())
+            for name, got in (("com_ends", com_ends), ("margins", margins),
+                              ("final_q", sims.q), ("llok", llok))}
+    rec = {"phase": "team", "what": "team golden", "backend": "pallas",
+           "dtype": "float64", "scenarios": 1, "agents": 4, "ticks": ticks,
+           "wall_s": wall, "max_abs_diff": diff, "launches": launches,
+           "bound": ("com_ends, margins and final_q 1e-5, llok 1e-9 (the "
+                     "golden's own); K3a and K3b launched, K2a and K2b two a "
+                     "tick, no K1"), "device": smi}
+    rec["ok"] = (diff["com_ends"] <= 1e-5 and diff["margins"] <= 1e-5
+                 and diff["final_q"] <= 1e-5 and diff["llok"] <= 1e-9
+                 and launches["K3a"] > 0 and launches["K3b"] > 0
+                 and launches["K2a"] == 2 * ticks
+                 and launches["K2b"] == 2 * ticks
+                 and launches["K1a"] == 0 and launches["K1b"] == 0)
+    emit(rec)
+    check(rec["ok"], f"team golden on the card: {rec}")
+    return launches
+
+
+def team_phase(dev, smi):
+    """Phase 13, the scenario-batched 4-agent team (see the module
+    docstring). Returns the kernels' launches in the team run and in the
+    team golden, and K1b (25, 12)'s case for the kernels line."""
+    from srbx_torch.config import QpConfig
+    from srbx_torch.eval import run_team
+    from srbx_torch.models import rbd
+    from srbx_torch.ops import pallas_linalg as plin, qp, qp_batch, qp_fused
+    from srbx_torch.ops import spd
+    from srbx_torch.sim import closedloop, wholebody as wb
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    counters = {"K1a": qp_fused.solve_lanes_last, "K1b": qp_fused.solve,
+                "K2a": spd.solve, "K2b": spd.inverse,
+                "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
+
+    # (a) the team at its production point through the runner: S 1024 x 4
+    # agents, fields of torch seed 7, loop 20,000, float32, cut in depth to
+    # 300 stand ticks and 3 domains. The LL QPs of stand tick 150 and of
+    # the second domain's tick 86 are kept for (c), the state at the last
+    # domain's start for (b).
+    pobs = run_team.sample_fields(TEAM_SCENARIOS, 7, f32, dev)
+    run_team.run(pobs, closedloop.LoopConfig(2, 1, 2))         # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    loop = closedloop.LoopConfig(*TEAM_DEPTH)
+    ticks = loop.stand_ticks + loop.n_domains * loop.ticks_per_domain
+    keep = {loop.stand_ticks // 2: "stand", loop.stand_ticks
+            + loop.ticks_per_domain + loop.ticks_per_domain // 2: "trot"}
+    ll_qps, shapes, domain_args = {}, set(), []
+    real_solve, real_domain = qp_batch.solve, closedloop._trot_domain
+
+    def capturing_solve(*a, **kw):
+        tick = len(ll_qps.setdefault("calls", []))
+        ll_qps["calls"].append(tick)
+        shapes.add((a[1].shape[1], a[2].shape[1]))
+        if tick in keep:
+            ll_qps[keep[tick]] = ([t.clone() for t in a[:6]], a[6])
+        return real_solve(*a, **kw)
+
+    def capturing_domain(*a, **kw):
+        domain_args[:] = [a]
+        return real_domain(*a, **kw)
+
+    for k in counters.values():
+        k.launches = 0
+    with mock.patch.object(qp_batch, "solve", capturing_solve), \
+            mock.patch.object(closedloop, "_trot_domain", capturing_domain):
+        out, planner_s, loop_s = run_team.run(pobs, loop)
+    team_launches = {name: k.launches for name, k in counters.items()}
+    summ = run_team.summarize(out, loop, planner_s, loop_s)
+    expect = {"K1a": 2 * loop.n_domains, "K1b": ticks, "K2a": 2 * ticks,
+              "K2b": 2 * ticks, "K3a": 0, "K3b": 0}
+    rec = {"phase": "team", "what": "production point", **summ,
+           "fields": "run_team.sample_fields, torch seed 7",
+           "loop_size": 20_000, "dtype": "float32", "backend": "fused",
+           "ll_reduced": True, "ll_qp_shapes": sorted(shapes),
+           "ll_qp_solves": len(ll_qps["calls"]),
+           "launches": team_launches, "expected_launches": expect,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "jax_record": ("64 x 4, 8 domains on the TPU: min inter-agent "
+                          "1.08 m, CBF margin 1.90, LL-QP ok 1.000 "
+                          "(docs/ROUND1.md:196-199; not gated)"),
+           "bound": ("finite; LL-QP ok >= 0.99; every LL QP at (n, me) = "
+                     "(25, 12); K1b one launch a tick, K1a two a domain, "
+                     "K2a and K2b two a tick, no K3"), "device": smi}
+    rec["ok"] = (summ["finite"] and summ["ll_qp_ok"] >= 0.99
+                 and shapes == {(25, 12)} and team_launches == expect)
+    emit(rec)
+    check(rec["ok"], f"team at its production point: {rec}")
+    del out
+
+    # (b) where the card's time goes: 5 trot ticks from the state at the
+    # last domain's start, under torch.profiler; then the physics of 5
+    # ticks alone (2 substeps each, from the same state)
+    (args,) = domain_args
+    five = args[4]._replace(ticks_per_domain=5)
+
+    def run5():
+        real_domain(*args[:4], five, *args[5:])
+
+    run5()
+    wall, busy, by_name = device_profile(run5)
+    sims, model, sim_cfg = args[6], args[5], args[3]
+    d0 = rbd.mass_matrix(model, sims.q)
+    tau = torch.zeros(sims.q.shape[0], 12, dtype=f32, device=dev)
+
+    def physics5():
+        for _ in range(5):
+            wb.step_batch(sim_cfg, model, sims, tau, backend="fused", d0=d0)
+
+    physics5()
+    _, phys_busy, _ = device_profile(physics5)
+    share = {name: sum(v for k, v in by_name.items() if key in k) / busy
+             for name, key in (("K1b", "qp_general"), ("K2", "spd_lane"))}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "team", "what": "profile", "ticks": 5,
+          "lanes": sims.q.shape[0], "wall_ms_profiled": wall * 1e3,
+          "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3),
+          "k1b_share_of_busy": share["K1b"], "k2_share_of_busy": share["K2"],
+          "physics_busy_ms_alone": phys_busy,
+          "physics_share_of_busy": phys_busy / busy,
+          "top_kernels_ms": top, "device": smi})
+    del args, domain_args, sims, d0
+
+    # (c) K1b (25, 12) against its plain version. Random well-conditioned
+    # QPs of the reduced shape in float64 (1e-9, equal flags and per-lane
+    # iterations); the loop's own reduced LL QPs after its 5 Ruiz sweeps
+    # (the stand tick's lanes interleaved with the trot tick's) in float64
+    # and float32; a ragged mixed batch as phase "mixed"; the ms per launch
+    # on the loop's float32 QPs. The loop's QPs have a condition near 1e10
+    # (aux_pen A'^T A' against df_pen): their force directions are weakly
+    # determined, and the plain version alone moves x about as far as the
+    # kernel does when h moves by 4 ulps (the record reports both). So in
+    # float64 the kernel is held to equal flags and per-lane iterations,
+    # tau and the objective to 1e-9, and x to 1e-6 (5.5e-7 measured on the
+    # card); in float32 to the converged share within 0.5 points, max
+    # |d tau| over the lanes converged in both reported.
+    k1b_cases = {}
+    rand = random_ll_qps(WB_BATCH, dev, f64, n=25, me=12)
+    sk = qp_fused.solve(*rand, QpConfig())
+    sp = qp_fused.solve_plain(*rand, QpConfig())
+    torch.cuda.synchronize()
+    rec = {"phase": "team", "what": "K1b (25, 12) vs plain",
+           "case": "random", "dtype": "float64", "lanes": WB_BATCH,
+           "max_abs_dx": (sk.x - sp.x).abs().max().item(),
+           "converged_equal": bool((sk.converged == sp.converged).all()),
+           "lane_iters_equal": bool((sk.lane_iters == sp.lane_iters).all()),
+           "converged": sk.converged.double().mean().item(),
+           "bound": ("max|dx| <= 1e-9; equal converged flags and per-lane "
+                     "iterations")}
+    rec["ok"] = (rec["max_abs_dx"] <= 1e-9 and rec["converged_equal"]
+                 and rec["lane_iters_equal"])
+    k1b_f64_dx = rec["max_abs_dx"]
+    emit(rec)
+    check(rec["ok"], f"K1b (25, 12) disagrees with its plain version: {rec}")
+
+    (stand, cfg), (trot, _) = ll_qps["stand"], ll_qps["trot"]
+    even = (torch.arange(stand[0].shape[0], device=dev) % 2 == 0)
+    mixed_qps = [torch.where(even.reshape((-1,) + (1,) * (a.dim() - 1)), a,
+                             b).contiguous() for a, b in zip(stand, trot)]
+    raw_cfg = dataclasses.replace(cfg, ruiz_iters=0)
+    for dtype in (f64, f32):
+        data, (d, _, _, _) = qp.ruiz_equilibrate(
+            *(mixed_qps[i].to(dtype) for i in (0, 1, 2, 4, 5, 3)),
+            cfg.ruiz_iters)
+        data = [t.contiguous() for t in data]
+        sk = qp_fused.solve(*data, raw_cfg)
+        sp = qp_fused.solve_plain(*data, raw_cfg)
+        torch.cuda.synchronize()
+        both = sk.converged & sp.converged
+        dx_unscaled = ((sk.x - sp.x) * d).abs()
+        dtau = dx_unscaled[:, 12:24].amax(1)[both]
+        rec = {"phase": "team", "what": "K1b (25, 12) vs plain",
+               "case": "loop_after_ruiz", "dtype": str(dtype),
+               "lanes": data[1].shape[0], "ruiz_iters": cfg.ruiz_iters,
+               "max_abs_dx": (sk.x - sp.x).abs().max().item(),
+               "max_abs_dtau_converged": (dtau.max().item()
+                                          if dtau.numel() else 0.0),
+               "converged_kernel": sk.converged.double().mean().item(),
+               "converged_plain": sp.converged.double().mean().item(),
+               "converged_equal": (sk.converged == sp.converged)
+               .double().mean().item(),
+               "lane_iters_equal": (sk.lane_iters == sp.lane_iters)
+               .double().mean().item(),
+               "iters_kernel": [sk.lane_iters.min().item(),
+                                sk.lane_iters.mean().item(),
+                                sk.lane_iters.max().item()]}
+        if dtype == f64:
+            h4 = data[5] * (1.0 + 4.0 * torch.finfo(f64).eps)
+            sp4 = qp_fused.solve_plain(*data[:5], h4, raw_cfg)
+
+            def objective(x, P=data[0], c=data[1]):
+                return (0.5 * torch.einsum("bn,bnm,bm->b", x, P, x)
+                        + (c * x).sum(1))
+
+            fk, fp = objective(sk.x), objective(sp.x)
+            rec.update(
+                max_abs_dforce_unscaled=dx_unscaled[:, 0:12].max().item(),
+                max_abs_dtau=dx_unscaled[:, 12:24].max().item(),
+                max_rel_dobjective=((fk - fp).abs()
+                                    / fp.abs().clamp(min=1.0)).max().item(),
+                plain_h_4ulp_max_abs_dx=(sp4.x - sp.x).abs().max().item(),
+                plain_h_4ulp_converged_equal=bool(
+                    (sp4.converged == sp.converged).all()))
+            rec["bound"] = ("equal converged flags and per-lane iterations; "
+                            "max|d tau| and the objective's relative "
+                            "difference <= 1e-9; max|dx| <= 1e-6 (weakly "
+                            "determined force directions: see the plain "
+                            "version's own change under a 4-ulp h)")
+            rec["ok"] = (rec["converged_equal"] == 1.0
+                         and rec["lane_iters_equal"] == 1.0
+                         and rec["max_abs_dtau"] <= 1e-9
+                         and rec["max_rel_dobjective"] <= 1e-9
+                         and rec["max_abs_dx"] <= 1e-6)
+        else:
+            rec["bound"] = ("kernel converged share within 0.5 points of "
+                            "the plain version's")
+            rec["ok"] = abs(rec["converged_kernel"]
+                            - rec["converged_plain"]) <= 0.005
+
+            def kern(data=data):
+                return qp_fused.solve(*data, raw_cfg)
+
+            def plain(data=data):
+                return qp_fused.solve_plain(*data, raw_cfg)
+
+            p1 = event_ms(plain, 3)
+            t1 = event_ms(kern, REPS)
+            t2 = event_ms(kern, REPS)
+            p2 = event_ms(plain, 3)
+            rec.update(kernel_ms=[t1, t2], plain_ms=[p1, p2])
+            k1b_cases["reduced_25_12"] = dict(
+                n=25, me=12, mi=data[4].shape[1], lanes=data[1].shape[0],
+                ms=(t1 + t2) / 2, plain_ms=(p1 + p2) / 2,
+                iters=rec["iters_kernel"],
+                **bound(*k1b_work(data, sk, raw_cfg.kkt_refine_iters)))
+        rec["device"] = smi
+        emit(rec)
+        check(rec["ok"], f"K1b (25, 12) on the loop's QPs: {rec}")
+    del ll_qps, mixed_qps, data
+
+    mix_lanes = WB_BATCH - 3
+    mix_qp = random_ll_qps(mix_lanes, dev, f64, seed=9, n=25, me=12)
+    infeasible = make_mixed(mix_qp[4], mix_qp[5])
+    mixed_cfg = QpConfig(abstol=1e-6, reltol=1e-6, reg_primal=1e-6,
+                          reg_dual=1e-6, max_iters=12)
+    sols = [fn(*mix_qp, mixed_cfg) for fn in (qp_fused.solve,
+                                              qp_fused.solve_plain)]
+    torch.cuda.synchronize()
+    fin = [torch.isfinite(torch.cat([o.x, o.y, o.z, o.s], 1)).all(1)
+           for o in sols]
+    mixed_record("K1b (25, 12)", mix_lanes, sols[0].x, sols[1].x, *fin,
+                 sols[0].converged, sols[1].converged, sols[0].lane_iters,
+                 sols[1].lane_iters, infeasible, 7, mixed_cfg.max_iters)
+
+    # (d) the team golden through K3 on the card
+    golden_launches = team_golden_check(dev, smi, counters)
+    emit({"phase": "team", "seconds": time.perf_counter() - t_phase})
+    return {"team": team_launches, "team_golden": golden_launches,
+            "k1b_cases": k1b_cases, "k1b_f64_dx": k1b_f64_dx}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -956,8 +1289,11 @@ def main() -> int:
                         if "kernelIf" in e["entry"])
     k2_f32_spills = sum(e["spill_stores"] + e["spill_loads"]
                         for e in k2_ptxas if "kernelIf" in e["entry"])
-    warps = {f"{k}_{d}_mi{mi}": qp_fused.resident_warps(dt, mi, k == "K1b")
-             for k, mis in (("K1a", (28, 48, 52)), ("K1b", (45,)))
+    warps = {f"{k}_{d}_mi{mi}": qp_fused.resident_warps(dt, mi, k != "K1a",
+                                                        shape)
+             for k, mis, shape in (("K1a", (28, 48, 52), None),
+                                   ("K1b", (45,), (43, 30)),
+                                   ("K1b_25_12", (45,), (25, 12)))
              for d, dt in (("f32", torch.float32), ("f64", torch.float64))
              for mi in mis}
     # the other kernels at their paths' shapes, float32
@@ -1245,7 +1581,7 @@ def main() -> int:
     # bench_wholebody's relaxed LL and NMPC solver configuration
     wb_relaxed = QpConfig(abstol=2e-3, reltol=1e-4, reg_primal=1e-6,
                           reg_dual=1e-6, max_iters=12)
-    wb_loop = closedloop.LoopConfig(stand_ticks=800, n_domains=2,
+    wb_loop = closedloop.LoopConfig(stand_ticks=300, n_domains=1,
                                     ticks_per_domain=172)
     wb_ticks = wb_loop.stand_ticks + wb_loop.n_domains * \
         wb_loop.ticks_per_domain
@@ -1578,13 +1914,18 @@ def main() -> int:
               **bound(*k2_work(k, r or k, WB_BATCH, identity=r == 0)),
               "device": smi})
 
-    k1b_bytes, k1b_flops = k1b_work(data32, sk, wb_relaxed.kkt_refine_iters)
+    k1b_full = dict(n=43, me=30, mi=45, lanes=WB_BATCH, ms=k1b_ms[0],
+                    plain_ms=k1b_ms[1],
+                    **bound(*k1b_work(data32, sk,
+                                      wb_relaxed.kkt_refine_iters)))
     kernels.append(dict(
         name="qp_general", route="cuda", source="srbx_torch/csrc/qp_general.cu",
         replaces="srbx/ops/qp_fused.py:94", launches=wb_launches["K1b"],
-        max_abs_err=k1b_f64_dx, ms=k1b_ms[0], plain_ms=k1b_ms[1],
-        library_ms=None, launches_by_path={"wholebody": wb_launches["K1b"]},
-        **bound(k1b_bytes, k1b_flops)))
+        max_abs_err=k1b_f64_dx, library_ms=None,
+        **{k: v for k, v in k1b_full.items()
+           if k not in ("n", "me", "mi", "lanes")},
+        launches_by_path={"wholebody": wb_launches["K1b"]},
+        by_case={"full_43_30": k1b_full}))
     for name, replaces, key, err, cases in (
             ("spd_solve", "srbx/ops/spd.py:70", "K2a",
              k2_f64_rel["K2a spd.solve k18"], ("K2a",)),
@@ -1906,6 +2247,18 @@ def main() -> int:
         if key:
             row["launches_by_path"]["template_campaign_golden"] = \
                 camp["K3"][key]
+    # ------------------------- 13. the team ------------------------------ #
+    team = team_phase(dev, smi)
+    kernel_keys = {"qp_fused_noeq": ("K1a",), "qp_general": ("K1b",),
+                   "spd_solve": ("K2a",), "spd_inverse": ("K2b",),
+                   "pallas_cholesky": ("K3a",), "pallas_cho_solve": ("K3b",)}
+    for row in kernels:
+        (key,) = kernel_keys[row["name"]]
+        for path in ("team", "team_golden"):
+            row["launches_by_path"][path] = team[path][key]
+        if key == "K1b":
+            row["by_case"].update(team["k1b_cases"])
+            row["max_abs_err"] = max(row["max_abs_err"], team["k1b_f64_dx"])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -103,7 +103,8 @@ def main() -> int:
 
         def physics():
             state["sims"] = wb.step_batch(sim_cfg, model, state["sims"],
-                                          ctx["out"].tau, d0=ctx["d"])
+                                          ctx["out"].tau, backend="fused",
+                                          d0=ctx["d"])
 
         return [("foot_forces", forces), ("mass_matrix", mass),
                 ("K2b_inverse_D", inv_d), ("tick_build", build),

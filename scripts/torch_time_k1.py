@@ -17,8 +17,9 @@ and run old, new, new, old in one command:
 
 K1a runs on the NMPC cycle's own QPs (B = 131072, float32, relaxed: cold
 mi 28, warm mi 48 and warm mi 52), K1b on random well-conditioned QPs of
-the whole-body LL QP's shape (B = 4096, n 43, me 30, mi 45, float32,
-bench_wholebody's relaxed configuration). Each line gives the CUDA-event ms
+the whole-body LL QP's shapes (B = 4096, mi 45, the full n 43 / me 30 and,
+where the tree has it, the reduced n 25 / me 12, float32, bench_wholebody's
+relaxed configuration). Each line gives the CUDA-event ms
 per launch (the mean of 10 launches, twice), the bound as `chip_smoke.py`
 counts it, the lanes' iterations, and the build's ptxas registers, stack and
 spills for that kernel. `--check` first holds each kernel against its plain
@@ -74,6 +75,9 @@ def main() -> int:
     _build.load()
     log = lib.with_suffix(".log").read_text()
     warps = {}
+    # the reduced LL QP's instantiation, in the trees that have it
+    reduced = (25, 12) in getattr(qp_fused, "GENERAL_SHAPES", ())
+    k1b_shapes = ((43, 30), (25, 12)) if reduced else ((43, 30),)
     if hasattr(qp_fused, "resident_warps"):        # not in the first designs
         for dtype in (torch.float32, torch.float64):
             for mi in (28, 48, 52):
@@ -82,6 +86,9 @@ def main() -> int:
             if hasattr(_build.load(), "srbx_qp_general_resident_warps"):
                 warps[f"K1b_{dtype}_mi45"] = qp_fused.resident_warps(
                     dtype, 45, general=True)
+            if reduced:
+                warps[f"K1b_r_{dtype}_mi45"] = qp_fused.resident_warps(
+                    dtype, 45, general=True, shape=(25, 12))
     print(json.dumps({"label": label, "root": str(root), "device": smi,
                       "resident_warps_per_sm": warps,
                       "ptxas_k1a": smoke.ptxas_summary(
@@ -122,15 +129,17 @@ def main() -> int:
                 "lane_iters_equal": (stk[3] == stp[3]).double().mean().item(),
                 "max_iters": [stk[3].max().item(), stp[3].max().item()]}),
                 flush=True)
-        data = smoke.random_ll_qps(4093, dev, torch.float64)
-        sk = qp_fused.solve(*data, QpConfig())
-        sp = qp_fused.solve_plain(*data, QpConfig())
-        print(json.dumps({
-            "label": label, "check": "K1b", "lanes": 4093, "dtype": "float64",
-            "max_abs_dx": (sk.x - sp.x).abs().max().item(),
-            "converged_equal": bool((sk.converged == sp.converged).all()),
-            "lane_iters_equal": (sk.lane_iters == sp.lane_iters).double()
-            .mean().item()}), flush=True)
+        for n, me in k1b_shapes:
+            data = smoke.random_ll_qps(4093, dev, torch.float64, n=n, me=me)
+            sk = qp_fused.solve(*data, QpConfig())
+            sp = qp_fused.solve_plain(*data, QpConfig())
+            print(json.dumps({
+                "label": label, "check": "K1b", "n": n, "me": me,
+                "lanes": 4093, "dtype": "float64",
+                "max_abs_dx": (sk.x - sp.x).abs().max().item(),
+                "converged_equal": bool((sk.converged == sp.converged).all()),
+                "lane_iters_equal": (sk.lane_iters == sp.lane_iters).double()
+                .mean().item()}), flush=True)
         del qp, cases, data
 
     qp, cases = qps(torch.float32)
@@ -150,21 +159,24 @@ def main() -> int:
                           **smoke.bound(*work), "device": smi}), flush=True)
     del qp, cases
 
-    data = smoke.random_ll_qps(smoke.WB_BATCH, dev, torch.float32)
+    for n, me in k1b_shapes:
+        data = smoke.random_ll_qps(smoke.WB_BATCH, dev, torch.float32, n=n,
+                                   me=me)
 
-    def kern_b():
-        return qp_fused.solve(*data, wb_relaxed)
+        def kern_b():
+            return qp_fused.solve(*data, wb_relaxed)
 
-    sol = kern_b()
-    ms = [smoke.event_ms(kern_b, REPS), smoke.event_ms(kern_b, REPS)]
-    work = smoke.k1b_work(data, sol, wb_relaxed.kkt_refine_iters)
-    print(json.dumps({"label": label, "kernel": "K1b", "case": "random_ll",
-                      "lanes": smoke.WB_BATCH, "n": 43, "me": 30, "mi": 45,
-                      "dtype": "float32", "ms": ms,
-                      "converged": sol.converged.double().mean().item(),
-                      "max_iters": int(sol.iters),
-                      "mean_iters": sol.lane_iters.double().mean().item(),
-                      **smoke.bound(*work), "device": smi}), flush=True)
+        sol = kern_b()
+        ms = [smoke.event_ms(kern_b, REPS), smoke.event_ms(kern_b, REPS)]
+        work = smoke.k1b_work(data, sol, wb_relaxed.kkt_refine_iters)
+        print(json.dumps({"label": label, "kernel": "K1b",
+                          "case": "random_ll", "lanes": smoke.WB_BATCH,
+                          "n": n, "me": me, "mi": 45, "dtype": "float32",
+                          "ms": ms,
+                          "converged": sol.converged.double().mean().item(),
+                          "max_iters": int(sol.iters),
+                          "mean_iters": sol.lane_iters.double().mean().item(),
+                          **smoke.bound(*work), "device": smi}), flush=True)
     return 0
 
 

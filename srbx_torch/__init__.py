@@ -1,5 +1,5 @@
-"""srbx_torch: the PyTorch / CUDA port of srbx's batched CBF-NMPC cycle and
-whole-body closed loop.
+"""srbx_torch: the PyTorch / CUDA port of srbx's batched CBF-NMPC cycle,
+whole-body closed loops (one robot a lane, and teams) and campaigns.
 
 The JAX package `srbx` stays as the reference; this package mirrors its
 module names and keeps its own copy of the configuration dataclasses. It
@@ -14,11 +14,13 @@ imports `torch`, never `jax`, and nothing of `srbx`.
   srbx_torch.motion, .agent  gait planning and the 1 kHz control tick
   srbx_torch.lowlevel        virtual constraints and the LL QP
   srbx_torch.estimation      the contact debouncer
-  srbx_torch.sim             batched physics and the closed loop (run_batch)
+  srbx_torch.sim             batched physics and the closed loops
+                             (run_batch, the team's run_team_batch)
   srbx_torch.ops             CUDA kernels K1a, K1b, K2a, K2b, K3a, K3b with
                              their plain PyTorch versions; the batched IPM
                              (qp_batch) and Ruiz equilibration (qp);
                              Bezier curves
+  srbx_torch.eval            the template A/B campaign and the team runner
   srbx_torch.convert         state conversion to and from numpy / JAX types
 
 Every function takes tensors with a leading lane axis; entry points that

@@ -7,8 +7,9 @@ off), evaluates the MPC's COM Bezier with the stale-solution fallback, runs
 the motion planner and the virtual constraints, and assembles the LL QP.
 `tick_build` stops before the solve and `tick_finish` completes the tick
 from its solution, so that the caller solves every lane's QP in one batched
-call. Every field of AgentState carries a leading lane axis. Other gaits and
-the reduced LL build raise NotImplementedError.
+call; `reduced` selects the reduced LL build (n 25, me 12) over the full
+one (n 43, me 30) in both. Every field of AgentState carries a leading lane
+axis. Other gaits raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -72,18 +73,15 @@ class TickCtx(NamedTuple):
     """Context carried from tick_build to tick_finish."""
 
     vc: lowlevel.VcOut
-    ll_ctx: lowlevel.LLCtx
+    ll_ctx: lowlevel.LLCtx    # lowlevel.LLCtxR from the reduced build
     state_pre: AgentState     # the new state, prev_ddq not yet updated
     run_mpc: torch.Tensor     # (B,) bool
 
 
-def _gait_check(gait, reduced):
+def _gait_check(gait):
     if gait not in (Gait.STAND, Gait.TROT):
         raise NotImplementedError(
             f"srbx_torch ports the STAND and TROT gaits only, got {gait!r}")
-    if reduced:
-        raise NotImplementedError(
-            "srbx_torch does not port the reduced LL build (ll_reduced)")
 
 
 def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
@@ -93,10 +91,11 @@ def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
                reduced: bool = False, d_inv=None):
     """Everything in a control tick up to the LL-QP solve, for every lane:
     q, qd (B, 18), foot_force (B, 4). force_new_domain: a bool for all lanes
-    or a (B,) mask. d_inv: (B, 18, 18) D(q)^-1 for the LL build.
+    or a (B,) mask. d_inv: (B, 18, 18) D(q)^-1 for the LL build. reduced:
+    the reduced LL build (`lowlevel.ll_qp_build_reduced`).
 
     Returns (lowlevel.LLQpData, TickCtx)."""
-    _gait_check(gait, reduced)
+    _gait_check(gait)
     dtype = q.dtype
     bsz = q.shape[0]
     dom_ticks_gait = float(motion_cfg.trot_dom_ticks)
@@ -168,8 +167,8 @@ def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
     )
     if f_des is None:
         f_des = torch.zeros((bsz, 12), dtype=dtype, device=q.device)
-    data, ll_ctx = lowlevel.ll_qp_build(ll_cfg, model, q, qd, ci, vc, f_des,
-                                        d_inv=d_inv)
+    build = lowlevel.ll_qp_build_reduced if reduced else lowlevel.ll_qp_build
+    data, ll_ctx = build(ll_cfg, model, q, qd, ci, vc, f_des, d_inv=d_inv)
     state_pre = AgentState(
         loco_tick=loco_tick + 1.0,
         gait_domain=gait_domain,
@@ -187,9 +186,11 @@ def tick_finish(ll_cfg: LowLevelConfig, ctx: TickCtx, q, qd, sol_x,
                 converged, reduced: bool = False, delta=None):
     """Complete the tick from the solved LL QP: the torques and the state
     update. delta: (B, 12, 12) inverse of the swing operational-space
-    matrix. Returns (ll_out, new_state, run_mpc)."""
-    _gait_check(Gait.TROT, reduced)
-    ll_out = lowlevel.ll_qp_finish(ll_cfg, ctx.ll_ctx, q, qd, ctx.vc, sol_x,
-                                   converged, delta=delta)
+    matrix. reduced: ctx is of the reduced build. Returns (ll_out,
+    new_state, run_mpc)."""
+    finish = (lowlevel.ll_qp_finish_reduced if reduced
+              else lowlevel.ll_qp_finish)
+    ll_out = finish(ll_cfg, ctx.ll_ctx, q, qd, ctx.vc, sol_x, converged,
+                    delta=delta)
     return (ll_out, ctx.state_pre._replace(prev_ddq=ll_out.ddq),
             ctx.run_mpc)

@@ -3,8 +3,9 @@
 The system has no learned weights; its state is what a user hands it or
 gets back: the NMPC carry (`MpcCarry`) and reference (`RefTraj`), the
 whole-body loop's plant, agent, contact-estimator and planner states
-(`SimState`, `AgentState`, `ConState`, `PlannerState`) and its result
-(`LoopResult`), a campaign's result (`CampaignResult`), obstacle fields,
+(`SimState`, `AgentState`, `ConState`, `PlannerState`), its low-level
+build's context (`LLCtx`, and `LLCtxR` of the reduced build) and its
+result (`LoopResult`), a campaign's result (`CampaignResult`), obstacle fields,
 footholds and QP operands. `from_numpy`
 turns any tree of arrays (numpy, or anything `np.asarray` accepts, such as
 the JAX package's arrays) into tensors, and the JAX package's NamedTuples
@@ -29,6 +30,7 @@ _PORT_TYPES = {
                 agent.TickCtx, contact.ConState, motion.PlannerState,
                 closedloop.LoopResult, lowlevel.VcOut, lowlevel.TrajIn,
                 lowlevel.LLOut, lowlevel.LLQpData, lowlevel.LLCtx,
+                lowlevel.LLCtxR,
                 qp_batch.BatchSolution, campaign.CampaignResult)
 }
 

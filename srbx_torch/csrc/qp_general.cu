@@ -5,10 +5,12 @@
 // noeq=False, entered through qp_fused.solve (via qp_batch.solve with
 // backend="fused"). Each lane solves
 //     min 1/2 x'Px + c'x   s.t.  Ax = b,  Gx <= h
-// with n = N and me = ME fixed at compile time (43 and 30: the whole-body
-// low-level QP) and mi <= kMaxMi runtime inequality rows (45 on that path),
-// from the regularised least-squares KKT start, optionally overwriting x by
-// a caller-given x0.
+// with n = N and me = ME fixed at compile time and mi <= kMaxMi runtime
+// inequality rows, from the regularised least-squares KKT start, optionally
+// overwriting x by a caller-given x0. Two instantiations, chosen by (n, me)
+// at launch: (43, 30), the whole-body low-level QP, and (25, 12), its
+// reduced build with the 18 output-defect variables eliminated
+// (srbx/lowlevel.py::ll_qp_build_reduced); both at mi 45 on their paths.
 //
 // Layout: batch-leading, as at the JAX package's API: P (B, N, N), c (B, N),
 // A (B, ME, N), b (B, ME), G (B, mi, N), h (B, mi), x0 (B, N); outputs x
@@ -42,6 +44,9 @@
 //     column, with no barrier; per-row quantities of G in the registers of
 //     thread r; reductions by warp shuffles and one barrier;
 //   * per-lane early exit: the block stops when its lane is done.
+// The (25, 12) instantiation is the same design at smaller widths: a lane's
+// vectors fit one slot of warp 0, its 9.3 KB of shared memory (f32, mi 45)
+// let more lanes share an SM, and __launch_bounds__ asks for 12 of them.
 //
 // Semantics kept from the TPU kernel (they change numbers):
 //   * M = P + G' diag(w) G + delta_p I and S = A M^-1 A' + delta_d I, each
@@ -488,13 +493,19 @@ struct Lane {
   }
 };
 
-// Blocks per SM that the registers must allow: as many lanes as the shared
-// memory takes, 8 in f32 and 4 in f64.
-template <typename T>
-constexpr int min_blocks() { return sizeof(T) == 4 ? 8 : 4; }
+// Blocks per SM that the registers must allow. At n 43 as many lanes as the
+// shared memory takes, 8 in f32 and 4 in f64 (25.0 and 50.0 KB a lane at
+// mi 45). At n 25 a lane's shared memory is 9.3 KB in f32 (18.6 in f64), so
+// 24 lanes would fit an SM; its n- and me-vectors take one warp-0 slot
+// each instead of two, and 12 f32 lanes (80 registers a thread) or 8 f64
+// lanes are asked for.
+template <typename T, int N>
+constexpr int min_blocks() {
+  return N == 43 ? (sizeof(T) == 4 ? 8 : 4) : (sizeof(T) == 4 ? 12 : 8);
+}
 
 template <typename T, int N, int ME>
-__global__ void __launch_bounds__(kThreads, min_blocks<T>())
+__global__ void __launch_bounds__(kThreads, min_blocks<T, N>())
 qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __restrict__ A,
                   const T* __restrict__ b, const T* __restrict__ G, const T* __restrict__ h,
                   const T* __restrict__ x0, T* __restrict__ x_out, T* __restrict__ y_out,
@@ -800,15 +811,12 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   }
 }
 
-constexpr int kN = 43;
-constexpr int kMe = 30;
+template <typename T, int N, int ME>
+size_t smem_bytes(int mi) { return sizeof(T) * (size_t)Shape<N, ME>::count(mi); }
 
-template <typename T>
-size_t smem_bytes(int mi) { return sizeof(T) * (size_t)Shape<kN, kMe>::count(mi); }
-
-template <typename T>
+template <typename T, int N, int ME>
 cudaError_t prepare(size_t smem) {
-  auto kernel = qp_general_kernel<T, kN, kMe>;
+  auto kernel = qp_general_kernel<T, N, ME>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
@@ -817,35 +825,56 @@ cudaError_t prepare(size_t smem) {
   return err;
 }
 
-template <typename T>
-int launch(const void* P, const void* c, const void* A, const void* b, const void* G,
-           const void* h, const void* x0, void* x, void* y, void* z, void* s, void* stat,
-           long long B, int n, int me, int mi, double abstol, double reltol, double reg_primal,
-           double reg_dual, double sigma_min, double step_frac, int max_iters, int refine,
-           int has_x0, void* stream) {
-  if (n != kN || me != kMe || mi < 1 || mi > kMaxMi) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
-  if (B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>(mi);
-  const cudaError_t err = prepare<T>(smem);
+template <typename T, int N, int ME>
+int launch_shape(const void* P, const void* c, const void* A, const void* b, const void* G,
+                 const void* h, const void* x0, void* x, void* y, void* z, void* s, void* stat,
+                 long long B, int mi, double abstol, double reltol, double reg_primal,
+                 double reg_dual, double sigma_min, double step_frac, int max_iters, int refine,
+                 int has_x0, void* stream) {
+  const size_t smem = smem_bytes<T, N, ME>(mi);
+  const cudaError_t err = prepare<T, N, ME>(smem);
   if (err != cudaSuccess) return (int)err;
-  qp_general_kernel<T, kN, kMe><<<(unsigned)B, kThreads, smem, (cudaStream_t)stream>>>(
+  qp_general_kernel<T, N, ME><<<(unsigned)B, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)P, (const T*)c, (const T*)A, (const T*)b, (const T*)G, (const T*)h,
       (const T*)x0, (T*)x, (T*)y, (T*)z, (T*)s, (T*)stat, mi, abstol, reltol, reg_primal,
       reg_dual, sigma_min, step_frac, max_iters, refine, has_x0);
   return (int)cudaGetLastError();
 }
 
+// The instantiation for (n, me): (43, 30) or (25, 12); any other shape is
+// refused with cudaErrorInvalidValue.
 template <typename T>
-int resident_warps(int mi) {
-  if (mi < 1 || mi > kMaxMi) return -1;
-  const size_t smem = smem_bytes<T>(mi);
+int launch(const void* P, const void* c, const void* A, const void* b, const void* G,
+           const void* h, const void* x0, void* x, void* y, void* z, void* s, void* stat,
+           long long B, int n, int me, int mi, double abstol, double reltol, double reg_primal,
+           double reg_dual, double sigma_min, double step_frac, int max_iters, int refine,
+           int has_x0, void* stream) {
+  const bool full = n == 43 && me == 30, reduced = n == 25 && me == 12;
+  if (!(full || reduced) || mi < 1 || mi > kMaxMi) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  if (B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto go = full ? launch_shape<T, 43, 30> : launch_shape<T, 25, 12>;
+  return go(P, c, A, b, G, h, x0, x, y, z, s, stat, B, mi, abstol, reltol, reg_primal, reg_dual,
+            sigma_min, step_frac, max_iters, refine, has_x0, stream);
+}
+
+template <typename T, int N, int ME>
+int resident_warps_shape(int mi) {
+  const size_t smem = smem_bytes<T, N, ME>(mi);
   int blocks = 0;
-  if (prepare<T>(smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, qp_general_kernel<T, kN, kMe>,
+  if (prepare<T, N, ME>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, qp_general_kernel<T, N, ME>,
                                                     kThreads, smem) != cudaSuccess)
     return -1;
   return blocks * kWarps;
+}
+
+template <typename T>
+int resident_warps(int n, int me, int mi) {
+  if (mi < 1 || mi > kMaxMi) return -1;
+  if (n == 43 && me == 30) return resident_warps_shape<T, 43, 30>(mi);
+  if (n == 25 && me == 12) return resident_warps_shape<T, 25, 12>(mi);
+  return -1;
 }
 
 }  // namespace
@@ -873,7 +902,7 @@ extern "C" int srbx_qp_general_f64(const void* P, const void* c, const void* A, 
                         stream);
 }
 
-// Warps resident per SM at mi rows (f64 != 0: double), or -1.
-extern "C" int srbx_qp_general_resident_warps(int f64, int mi) {
-  return f64 ? resident_warps<double>(mi) : resident_warps<float>(mi);
+// Warps resident per SM at (n, me) and mi rows (f64 != 0: double), or -1.
+extern "C" int srbx_qp_general_resident_warps(int f64, int n, int me, int mi) {
+  return f64 ? resident_warps<double>(n, me, mi) : resident_warps<float>(n, me, mi);
 }

@@ -11,11 +11,22 @@ padded shapes, variable contact counts by masking, exactly as there:
                 output rows (18, masked to base and swing legs)        me 30
     inequalities: friction pyramids (20, masked), +-tau (24), CLF      mi 45
 
+The reduced build (`ll_qp_build_reduced`) eliminates the 18 aux variables
+through the output rows in closed form, which leaves the soft-output cost
+aux_pen ||A'x + C||^2 of the reference's alternative formulation:
+
+    decision x = [F (12) | tau (12) | clf defect]                    n 25
+    equalities: contact rows (12, masked to stance legs)             me 12
+    inequalities: friction pyramids (20, masked), +-tau (24), CLF    mi 45
+
+`expand_reduced_x` maps its solution back to the full layout and
+`ll_qp_finish_reduced` finishes it with the full build's post-solve math.
+
 Every argument carries a leading lane axis B. The operands are built
 batched with `torch.cat` and products (no per-lane writes); where the JAX
 package multiplies by the constant selector B = [0; I12] the port slices,
-which gives the same numbers. Not ported: the CLF row (`use_clf=True`) and
-the reduced (aux-eliminated) build; both raise NotImplementedError.
+which gives the same numbers. Not ported: the CLF row (`use_clf=True`),
+which raises NotImplementedError in either build.
 """
 
 from __future__ import annotations
@@ -33,6 +44,9 @@ from srbx_torch.ops import bezier as bz
 N_DEC = 43
 N_EQ = 30
 N_INEQ = 45
+N_DEC2 = 25          # the reduced build
+N_EQ2 = 12
+N_INEQ2 = 45
 
 
 class VcOut(NamedTuple):
@@ -191,6 +205,68 @@ def _qp_consts(ll_cfg: LowLevelConfig, dtype, device):
             t(np.eye(N_EQ - 12)), t(sel))
 
 
+def _no_clf(ll_cfg: LowLevelConfig):
+    if ll_cfg.use_clf:
+        raise NotImplementedError("srbx_torch does not port the CLF row of "
+                                  "the LL QP (LowLevelConfig.use_clf)")
+
+
+class _Terms(NamedTuple):
+    """What both LL builds compute from the state, batched."""
+
+    h_bias: torch.Tensor    # (B, 18)
+    d_inv: torch.Tensor     # (B, 18, 18)
+    b_mat: torch.Tensor     # (B, 18, 12)
+    toe_jac: torch.Tensor   # (B, 4, 3, 18)
+    con: torch.Tensor       # (B, 4)
+    con3: torch.Tensor      # (B, 12)
+    jc_flat: torch.Tensor   # (B, 12, 18)
+    djc_qd: torch.Tensor    # (B, 12)
+
+
+def _terms(ll_cfg, model, q, qd, contact_ind, include_coriolis, d_inv):
+    from srbx_torch.ops import spd
+
+    bsz = q.shape[0]
+    h_bias = rbd.bias_forces(model, q, qd, include_coriolis=include_coriolis)
+    if d_inv is None:
+        d_inv = spd.inverse(rbd.mass_matrix(model, q))
+    sel = _qp_consts(ll_cfg, q.dtype, q.device)[4]
+    sj, jdqd = rbd.site_jacobians_and_jdot_qd(model, q, qd)
+    toe_jac = sj[:, a1.TOE_SITES]                                # (B, 4, 3, 18)
+    toe_jdqd = jdqd[:, a1.TOE_SITES]
+    con = contact_ind.to(q.dtype)
+    return _Terms(
+        h_bias, d_inv, sel.expand(bsz, TOTAL_DOF, 12), toe_jac, con,
+        con.repeat_interleave(3, -1),
+        (toe_jac * con[:, :, None, None]).reshape(bsz, 12, TOTAL_DOF),
+        (toe_jdqd * con[:, :, None]).reshape(bsz, 12))
+
+
+def _inequalities(ll_cfg, con, n_dec):
+    """G (B, 45, n_dec) and h (B, 45): the friction pyramids scaled by
+    contact, the torque bounds, and the (unported, zero) CLF row."""
+    g_full, h_bounds = _qp_consts(ll_cfg, con.dtype, con.device)[1:3]
+    bsz = con.shape[0]
+    con5 = con.repeat_interleave(5, -1)                          # (B, 20)
+    row_scale = torch.cat([con5, torch.ones((bsz, N_INEQ - 20),
+                                            dtype=con.dtype,
+                                            device=con.device)], 1)
+    G = g_full[:, :n_dec] * row_scale[:, :, None]
+    h = torch.cat([torch.where(con5 > 0, 0.0, 1.0),
+                   h_bounds.expand(bsz, N_INEQ - 20)], 1)
+    return G.contiguous(), h.contiguous()
+
+
+def _ctx(model, q, t: _Terms):
+    zero = torch.zeros(q.shape[0], dtype=q.dtype, device=q.device)
+    toe_pos = rbd.site_positions(model, q)[:, a1.TOE_SITES]
+    return LLCtx(t.d_inv, t.b_mat, t.h_bias, t.jc_flat, t.toe_jac, toe_pos,
+                 t.con, zero, zero, torch.zeros((q.shape[0], 18),
+                                                dtype=q.dtype,
+                                                device=q.device), zero)
+
+
 def ll_qp_build(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd, contact_ind,
                 vc: VcOut, f_des, include_coriolis: bool = False, d_inv=None):
     """Assemble the LL QP for every lane without solving it. Returns
@@ -199,27 +275,14 @@ def ll_qp_build(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd, contact_ind,
 
     d_inv: (B, 18, 18) D(q)^-1; when None it is computed here with
     `srbx_torch.ops.spd.inverse` (the JAX package's per-lane inverse is an
-    LU one)."""
-    if ll_cfg.use_clf:
-        raise NotImplementedError("srbx_torch does not port the CLF row of "
-                                  "the LL QP (LowLevelConfig.use_clf)")
-    from srbx_torch.ops import spd
-
+    LU one; its batched loop's "xla" form passes that in)."""
+    _no_clf(ll_cfg)
     dtype = q.dtype
     bsz = q.shape[0]
-    h_bias = rbd.bias_forces(model, q, qd, include_coriolis=include_coriolis)
-    if d_inv is None:
-        d_inv = spd.inverse(rbd.mass_matrix(model, q))
-    p_mat, g_full, h_bounds, eye18, sel = _qp_consts(ll_cfg, dtype, q.device)
-    b_mat = sel.expand(bsz, TOTAL_DOF, 12)
-
-    sj, jdqd = rbd.site_jacobians_and_jdot_qd(model, q, qd)
-    toe_jac = sj[:, a1.TOE_SITES]                                # (B, 4, 3, 18)
-    toe_jdqd = jdqd[:, a1.TOE_SITES]
-    con = contact_ind.to(dtype)
-    con3 = con.repeat_interleave(3, -1)                          # (B, 12)
-    jc_flat = (toe_jac * con[:, :, None, None]).reshape(bsz, 12, TOTAL_DOF)
-    djc_qd = (toe_jdqd * con[:, :, None]).reshape(bsz, 12)
+    t = _terms(ll_cfg, model, q, qd, contact_ind, include_coriolis, d_inv)
+    h_bias, d_inv, jc_flat, djc_qd, con3 = (t.h_bias, t.d_inv, t.jc_flat,
+                                            t.djc_qd, t.con3)
+    p_mat, _, _, eye18, _ = _qp_consts(ll_cfg, dtype, q.device)
     kp, kd = ll_cfg.kp, ll_cfg.kd
 
     # cost
@@ -247,21 +310,71 @@ def ll_qp_build(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd, contact_ind,
     ], 1)
 
     # inequalities: friction pyramids scaled by contact, torque bounds
-    con5 = con.repeat_interleave(5, -1)                          # (B, 20)
-    row_scale = torch.cat([con5, torch.ones((bsz, N_INEQ - 20), dtype=dtype,
-                                            device=q.device)], 1)
-    G = g_full * row_scale[:, :, None]
-    h = torch.cat([torch.where(con5 > 0, 0.0, 1.0),
-                   h_bounds.expand(bsz, N_INEQ - 20)], 1)
-
-    toe_pos = rbd.site_positions(model, q)[:, a1.TOE_SITES]
-    zero = torch.zeros(bsz, dtype=dtype, device=q.device)
+    G, h = _inequalities(ll_cfg, t.con, N_DEC)
     data = LLQpData(P, c.contiguous(), a_eq.contiguous(), b_eq.contiguous(),
-                    G.contiguous(), h.contiguous())
-    ctx = LLCtx(d_inv, b_mat, h_bias, jc_flat, toe_jac, toe_pos, con,
-                zero, zero, torch.zeros((bsz, 18), dtype=dtype,
-                                        device=q.device), zero)
-    return data, ctx
+                    G, h)
+    return data, _ctx(model, q, t)
+
+
+class LLCtxR(NamedTuple):
+    """The reduced build's context: the full build's, and the output map
+    that recovers the eliminated aux variables, aux = -(a_out x + c_out)."""
+
+    base: LLCtx
+    a_out: torch.Tensor     # (B, 18, 24)
+    c_out: torch.Tensor     # (B, 18)
+
+
+def ll_qp_build_reduced(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd,
+                        contact_ind, vc: VcOut, f_des,
+                        include_coriolis: bool = False, d_inv=None):
+    """The reduced LL QP for every lane: the 18 aux output-defect variables
+    eliminated through the output rows, aux = r - A'x, so that aux_pen
+    ||aux||^2 becomes aux_pen ||A'x + C||^2 with A' = H0 D^-1 [Jc' | B] and
+    C = -H0 D^-1 H + dH0 + kp y + kd dy on the active output rows. n 25,
+    me 12 (the contact rows), mi 45: the same solution set as the full
+    build to eps-optimality. d_inv as in `ll_qp_build`.
+
+    Returns (LLQpData, LLCtxR); `ll_qp_finish_reduced` completes it."""
+    _no_clf(ll_cfg)
+    dtype = q.dtype
+    bsz = q.shape[0]
+    t = _terms(ll_cfg, model, q, qd, contact_ind, include_coriolis, d_inv)
+    kp, kd = ll_cfg.kp, ll_cfg.kd
+    zeros = functools.partial(torch.zeros, dtype=dtype, device=q.device)
+
+    # cost over (F, tau): aux_pen A'^T A' and aux_pen A'^T C
+    h0_dinv = vc.h0_mat @ t.d_inv                                # (B, 18, 18)
+    a_out = torch.cat([h0_dinv @ t.jc_flat.transpose(1, 2),
+                       h0_dinv[:, :, 6:]], 2) * vc.out_mask[:, :, None]
+    c_out = ((-h0_dinv @ t.h_bias[:, :, None])[..., 0] + vc.dh0
+             + kp * vc.y + kd * vc.dy) * vc.out_mask
+    a_out_t = a_out.transpose(1, 2)
+    p_diag = torch.tensor([ll_cfg.df_pen] * 12 + [ll_cfg.tau_pen] * 12
+                          + [1.0], dtype=dtype, device=q.device)
+    P = torch.nn.functional.pad(ll_cfg.aux_pen * (a_out_t @ a_out),
+                                (0, 1, 0, 1)) + torch.diag(p_diag)
+    atc = ll_cfg.aux_pen * (a_out_t @ c_out[:, :, None])[..., 0]   # (B, 24)
+    c = torch.cat([-ll_cfg.df_pen * f_des * t.con3 + atc[:, 0:12],
+                   atc[:, 12:24], zeros((bsz, 1))], 1)
+
+    # equalities: the contact rows
+    jc_dinv = t.jc_flat @ t.d_inv                                # (B, 12, 18)
+    a_eq = torch.cat([jc_dinv @ t.jc_flat.transpose(1, 2), jc_dinv[:, :, 6:],
+                      zeros((bsz, N_EQ2, 1))], 2)
+    b_eq = (jc_dinv @ t.h_bias[:, :, None])[..., 0] - t.djc_qd
+
+    G, h = _inequalities(ll_cfg, t.con, N_DEC2)
+    data = LLQpData(P.contiguous(), c.contiguous(), a_eq.contiguous(),
+                    b_eq.contiguous(), G, h)
+    return data, LLCtxR(_ctx(model, q, t), a_out, c_out)
+
+
+def expand_reduced_x(ctx: LLCtxR, sol_x):
+    """A reduced solution [F, tau, clf] (B, 25) in the full layout
+    [F, tau, aux, clf] (B, 43), with aux = -(a_out x + c_out)."""
+    aux = -((ctx.a_out @ sol_x[:, 0:24, None])[..., 0] + ctx.c_out)
+    return torch.cat([sol_x[:, 0:24], aux, sol_x[:, 24:25]], 1)
 
 
 def swing_delta_inv(ctx: LLCtx):
@@ -283,9 +396,7 @@ def ll_qp_finish(ll_cfg: LowLevelConfig, ctx: LLCtx, q, qd, vc: VcOut, sol_x,
 
     delta: (B, 12, 12) inverse of `swing_delta_inv(ctx)`; when None it is
     computed here with `srbx_torch.ops.spd.inverse`."""
-    if ll_cfg.use_clf:
-        raise NotImplementedError("srbx_torch does not port the CLF row of "
-                                  "the LL QP (LowLevelConfig.use_clf)")
+    _no_clf(ll_cfg)
     from srbx_torch.ops import spd
 
     dtype = q.dtype
@@ -323,3 +434,12 @@ def ll_qp_finish(ll_cfg: LowLevelConfig, ctx: LLCtx, q, qd, vc: VcOut, sol_x,
     return LLOut(tau=tau_full[:, 6:], grf=f_qp, y=vc.y, dy=vc.dy, ddq=ddq,
                  q_next=q_next, dq_next=dq_next, v_lyap=ctx.v,
                  dv_lyap=torch.zeros_like(ctx.v), qp_converged=converged)
+
+
+def ll_qp_finish_reduced(ll_cfg: LowLevelConfig, ctx: LLCtxR, q, qd,
+                         vc: VcOut, sol_x, converged, delta=None) -> LLOut:
+    """Finish a reduced solve with the full build's post-solve math (the
+    swing-leg PD add-on included); delta as in `ll_qp_finish`, of
+    `swing_delta_inv(ctx.base)`."""
+    return ll_qp_finish(ll_cfg, ctx.base, q, qd, vc,
+                        expand_reduced_x(ctx, sol_x), converged, delta=delta)

@@ -398,6 +398,24 @@ def apply_site_forces(model: Model, q, f_sites):
     return pull(f_sites)[0]
 
 
+def forward_dynamics(model: Model, q, qd, tau, f_ext_sites=None, d=None):
+    """qdd = D^-1 (tau + sum J' f_ext - H) for lanes (B, nq), each lane's D
+    factored by LAPACK's Cholesky (`torch.linalg.cholesky_ex`, then
+    `torch.cholesky_solve`), as the JAX package's per-lane
+    `forward_dynamics` does with `cho_factor` / `cho_solve`; a lane whose
+    D does not factor comes out NaN there and here.
+
+    d: optional precomputed (B, nq, nq) mass matrices at q."""
+    if d is None:
+        d = mass_matrix(model, q)
+    rhs = tau - bias_forces(model, q, qd)
+    if f_ext_sites is not None:
+        rhs = rhs + apply_site_forces(model, q, f_ext_sites)
+    l, info = torch.linalg.cholesky_ex(d)
+    l = torch.where((info > 0)[..., None, None], torch.nan, l)
+    return torch.cholesky_solve(rhs[..., None], l)[..., 0]
+
+
 def forward_dynamics_batch(model: Model, q, qd, tau, f_ext_sites=None,
                            d=None):
     """qdd = D^-1 (tau + sum J' f_ext - H) for lanes (B, nq); the SPD solve

@@ -152,8 +152,8 @@ def run_nmpc_batch(
     backend="fused", which its callers pass. Any other call takes the
     generic branch through `qp_batch.solve`: "pallas" (kernels K3a and K3b)
     or "xla" (torch.linalg). There backend="fused" reaches kernel K1b,
-    which is built for n 43 and me 30 only and raises on the NMPC's
-    shapes. qp_converged and qp_iters are the
+    which is built for the low-level QP's shapes only ((n, me) = (43, 30)
+    and (25, 12)) and raises on the NMPC's. qp_converged and qp_iters are the
     first QP's, qp_iters its iteration count (max over lanes), as in the JAX
     package. Matrix products run in full float32 (no TF32); the caller's
     setting is restored after.

@@ -60,6 +60,7 @@ _CHOLESKY_ARGTYPES = [_P] * 2 + [ctypes.c_longlong, ctypes.c_int, _P]
 _CHO_SOLVE_ARGTYPES = ([_P] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
                        + [_P])
 _RESIDENT_WARPS_ARGTYPES = [ctypes.c_int, ctypes.c_int]   # f64, mi
+_RESIDENT_WARPS_GENERAL_ARGTYPES = [ctypes.c_int] * 4     # f64, n, me, mi
 _RESIDENT_WARPS_KR_ARGTYPES = [ctypes.c_int] * 3          # f64, k, r
 _GEOMETRY_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_longlong, _P])
 #                                                           f64 k r B out
@@ -69,7 +70,7 @@ ENTRY_POINTS = {
     "srbx_qp_fused_noeq_resident_warps": _RESIDENT_WARPS_ARGTYPES,
     "srbx_qp_general_f32": _QP_GENERAL_ARGTYPES,
     "srbx_qp_general_f64": _QP_GENERAL_ARGTYPES,
-    "srbx_qp_general_resident_warps": _RESIDENT_WARPS_ARGTYPES,
+    "srbx_qp_general_resident_warps": _RESIDENT_WARPS_GENERAL_ARGTYPES,
     "srbx_spd_solve_f32": _SPD_SOLVE_ARGTYPES,
     "srbx_spd_solve_f64": _SPD_SOLVE_ARGTYPES,
     "srbx_spd_inverse_f32": _SPD_INVERSE_ARGTYPES,

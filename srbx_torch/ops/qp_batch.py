@@ -17,7 +17,8 @@ with operands batch-leading (B, ...). Backends:
   synchronisation per iteration; `iters` is the number executed and each
   lane's x, y, z and s are frozen once it is done.
 * "fused": the general fused IPM (`srbx_torch.ops.qp_fused.solve`, kernel
-  K1b on the card; built for n 43 and me 30 only).
+  K1b on the card; built for (n, me) = (43, 30) and (25, 12), the full
+  and the reduced low-level QP).
 * "lanes" (the JAX package's pure-JAX unrolled kernels) is left out of the
   port and raises.
 

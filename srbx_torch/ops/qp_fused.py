@@ -14,9 +14,11 @@ package's fused Pallas kernel (`srbx/ops/qp_fused.py::_make_kernel`) for
   rows of G with their iterates in registers, and x, z, s and stat are
   written back once.
 * `solve` (K1b, `noeq=False`): operands batch-leading (B, ...), the JAX
-  package's `qp_fused.solve`; the whole-body loop's LL QP. CUDA kernel
-  `srbx_torch/csrc/qp_general.cu`, two warps per lane (one lane per
-  block) with the lane's operands and factors in shared memory.
+  package's `qp_fused.solve`; the whole-body loop's LL QP, full (n 43,
+  me 30) or reduced (n 25, me 12). CUDA kernel
+  `srbx_torch/csrc/qp_general.cu`, one instantiation per shape, two warps
+  per lane (one lane per block) with the lane's operands and factors in
+  shared memory.
 
 Beside each kernel, a plain PyTorch version with the same semantics
 (`solve_lanes_last_plain`, `solve_plain`, both through `_ipm_plain`). The
@@ -43,15 +45,17 @@ MAX_MI = 64          # the kernel's per-lane row capacity (kMaxMi)
 STAT_ROWS = 8        # res, gap/mi, converged, iterations, 4 zero rows
 
 
-def resident_warps(dtype, mi, general=False):
-    """Warps of K1a (or K1b with `general`) resident on one SM of the card
-    at mi rows, from the CUDA occupancy calculator."""
+def resident_warps(dtype, mi, general=False, shape=(43, 30)):
+    """Warps of K1a (or of K1b at `shape` = (n, me) with `general`)
+    resident on one SM of the card at mi rows, from the CUDA occupancy
+    calculator."""
     from srbx_torch.ops import _build
 
     lib = _build.load()
-    fn = (lib.srbx_qp_general_resident_warps if general
-          else lib.srbx_qp_fused_noeq_resident_warps)
-    return fn(int(dtype == torch.float64), mi)
+    f64 = int(dtype == torch.float64)
+    if general:
+        return lib.srbx_qp_general_resident_warps(f64, *shape, mi)
+    return lib.srbx_qp_fused_noeq_resident_warps(f64, mi)
 
 
 def _mv(m, v):
@@ -350,8 +354,9 @@ solve_lanes_last.launches = 0
 # General form (kernel K1b): equality and inequality rows, batch-leading.
 # --------------------------------------------------------------------------- #
 
-N_GENERAL = 43       # the whole-body low-level QP's size: n
-ME_GENERAL = 30      # and equality rows, the K1b kernel's template (N, ME)
+# the K1b kernel's template instantiations (n, me): the whole-body low-level
+# QP, full and reduced
+GENERAL_SHAPES = ((43, 30), (25, 12))
 
 
 def _lanes_last(t):
@@ -384,15 +389,13 @@ def _check_general(P, c, A, b, G, h, x0):
     if c.dim() != 2:
         raise ValueError(f"c must be (B, n), got {tuple(c.shape)}")
     bsz, n = c.shape
-    if n != N_GENERAL:
-        raise ValueError(f"the general fused kernel is built for "
-                         f"n={N_GENERAL}, got {n}")
     if A.dim() != 3 or G.dim() != 3:
         raise ValueError("A and G must be (B, rows, n)")
     me, mi = A.shape[1], G.shape[1]
-    if me != ME_GENERAL:
-        raise ValueError(f"the general fused kernel is built for "
-                         f"me={ME_GENERAL}, got {me}")
+    if (n, me) not in GENERAL_SHAPES:
+        built = " and ".join(f"n={a}, me={b}" for a, b in GENERAL_SHAPES)
+        raise ValueError(f"the general fused kernel is built for {built}, "
+                         f"got n={n}, me={me}")
     if not 1 <= mi <= MAX_MI:
         raise ValueError(f"mi must be in [1, {MAX_MI}], got {mi}")
     shapes = {"P": (bsz, n, n), "A": (bsz, me, n), "b": (bsz, me),
@@ -424,10 +427,11 @@ def solve(P, c, A, b, G, h, cfg: QpConfig = QpConfig(), x0=None):
     operands; the JAX package's `qp_fused.solve` without `tile` and
     `interpret`.
 
-    P (B, 43, 43), c (B, 43), A (B, 30, 43), b (B, 30), G (B, mi, 43) with
-    mi <= 64, h (B, mi), optional x0 (B, 43); all contiguous, one dtype
-    (float32 or float64), one device. Returns a BatchSolution (with each
-    lane's own iteration count in `lane_iters`).
+    P (B, n, n), c (B, n), A (B, me, n), b (B, me), G (B, mi, n) with
+    (n, me) = (43, 30) or (25, 12) and mi <= 64, h (B, mi), optional x0
+    (B, n); all contiguous, one dtype (float32 or float64), one device.
+    Returns a BatchSolution (with each lane's own iteration count in
+    `lane_iters`).
 
     CPU tensors go to `solve_plain`. CUDA tensors launch the CUDA kernel
     (K1b), which adds one to `solve.launches`; any failure raises. Any B is

@@ -1,16 +1,21 @@
 """Batched whole-body physics: the 18-DoF A1 on compliant ground.
 
-Counterpart of `srbx/sim/wholebody.py` on the path the batched closed loop
-takes (`step_batch` with its fused backend): the plant is the controller's
-own rigid-body model with a spring-damper normal contact at the toe sites
-and viscous tangential friction clamped to the Coulomb cone, integrated by
-semi-implicit Euler in `substeps` steps per 1 ms tick. Each substep's
-D qdd = rhs solve runs through `srbx_torch.ops.spd.solve` (kernel K2a on
-the card).
+Counterpart of `srbx/sim/wholebody.py` on the paths the batched closed
+loops take (`step_batch`): the plant is the controller's own rigid-body
+model with a spring-damper normal contact at the toe sites and viscous
+tangential friction clamped to the Coulomb cone, integrated by
+semi-implicit Euler in `substeps` steps per 1 ms tick. Two forms, as in the
+JAX package:
+
+* backend "xla": the JAX package's `vmap(step)`, each substep solving
+  D qdd = rhs by LAPACK's Cholesky (`rbd.forward_dynamics`), D evaluated
+  anew in every substep (a given `d0` is ignored);
+* backend "fused" or "pallas": each substep's solve through
+  `srbx_torch.ops.spd.solve` (kernel K2a on the card), the first
+  substep's D optionally handed in (`d0`).
 
 Not ported: the stick-slip tangential model (`SimState.con`, which raises
-NotImplementedError), the per-lane `step` and `backend="xla"` form, and the
-trunk force pulses (`base_force`).
+NotImplementedError) and the trunk force pulses (`base_force`).
 """
 
 from __future__ import annotations
@@ -68,12 +73,21 @@ def contact_forces(cfg: SimConfig, model: rbd.Model, q, qd, con=None):
 
 
 def step_batch(cfg: SimConfig, model: rbd.Model, states: SimState,
-               tau_joints, d0=None) -> SimState:
+               tau_joints, backend: str = "xla", d0=None) -> SimState:
     """One 1 ms tick for every lane under joint torques tau_joints (B, 12):
-    the JAX package's `step_batch` on its fused path. d0: optional
-    (B, 18, 18) mass matrices at states.q, reused by the first substep
-    (the controller evaluated them at the same q)."""
+    the JAX package's `step_batch` without the TPU-only `tile`. d0:
+    optional (B, 18, 18) mass matrices at states.q, reused by the first
+    substep on the "fused" and "pallas" backends (the controller evaluated
+    them at the same q) and ignored on "xla", as there: the goldens
+    integrate about a thousand contact-rich ticks, where reassociating
+    the first substep's solve would be amplified."""
     _no_stiction(states.con)
+    if backend == "xla":
+        fd, d0 = rbd.forward_dynamics, None
+    elif backend in ("fused", "pallas"):
+        fd = rbd.forward_dynamics_batch
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
     dt = cfg.dt / cfg.substeps
     q, qd = states.q, states.qd
     bsz, dtype = q.shape[0], q.dtype
@@ -84,9 +98,8 @@ def step_batch(cfg: SimConfig, model: rbd.Model, states: SimState,
     for k in range(cfg.substeps):
         grf = contact_forces(cfg, model, q, qd)
         f_sites = torch.cat([grf, spare], 1)
-        qdd = rbd.forward_dynamics_batch(model, q, qd, tau_full,
-                                         f_ext_sites=f_sites,
-                                         d=d0 if k == 0 else None)
+        qdd = fd(model, q, qd, tau_full, f_ext_sites=f_sites,
+                 d=d0 if k == 0 else None)
         qd = qd + dt * qdd
         q = q + dt * qd
     return SimState(q, qd)

@@ -53,7 +53,8 @@ def test_import_pulls_in_no_jax():
             "srbx_torch.models.rbd", "srbx_torch.lowlevel", "srbx_torch.gait",
             "srbx_torch.eval", "srbx_torch.eval.campaign",
             "srbx_torch.eval.analysis",
-            "srbx_torch.eval.run_campaign_ab"} <= set(MODULES)
+            "srbx_torch.eval.run_campaign_ab",
+            "srbx_torch.eval.run_team"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -110,9 +111,11 @@ def _default(value):
     (spd.solve, jspd.solve), (spd.inverse, jspd.inverse),
     (campaign.run_campaign_batch, jcampaign.run_campaign_batch),
     (campaign._run_campaign_batch_core, jcampaign._run_campaign_batch_core),
+    (closedloop.run_team_batch, jclosedloop.run_team_batch),
+    (wb.step_batch, jwb.step_batch),
 ], ids=["run_nmpc_batch", "qp_batch_solve", "run_batch", "qp_fused_solve",
         "solve_lanes_last", "spd_solve", "spd_inverse", "run_campaign_batch",
-        "run_campaign_batch_core"])
+        "run_campaign_batch_core", "run_team_batch", "step_batch"])
 def test_entry_points_keep_the_jax_defaults(mine, theirs):
     """Every parameter that a port entry point shares with its JAX
     counterpart has the same default, so that a call ported from the JAX
@@ -145,6 +148,16 @@ def test_campaign_signatures_differ_only_as_documented(mine, theirs,
     assert ours.index(ours_only[0]) == ref.index(theirs_only[0])
 
 
+def test_run_team_batch_signature_differs_only_as_documented():
+    """run_team_batch takes the JAX arguments in the JAX order, without the
+    TPU-only tile, and adds device at the end."""
+    ours = list(inspect.signature(closedloop.run_team_batch).parameters)
+    ref = list(inspect.signature(jclosedloop.run_team_batch).parameters)
+    assert [n for n in ref if n not in ours] == ["tile"]
+    assert [n for n in ours if n not in ref] == ["device"] == ours[-1:]
+    assert [n for n in ours if n in ref] == [n for n in ref if n != "tile"]
+
+
 def test_entry_points_default_to_the_card():
     """device=None means the CUDA card: without one, the call fails rather
     than running on the CPU."""
@@ -159,7 +172,11 @@ def test_entry_points_default_to_the_card():
                  MpcConfig(use_sqp=False, condensed=True, elide_box_rows=True,
                            elide_simplex=True), QpConfig(),
                  campaign.CampaignConfig(n_domains=1), cfg, torch.zeros(4),
-                 torch.Generator().manual_seed(0), 1)]
+                 torch.Generator().manual_seed(0), 1),
+             lambda: closedloop.run_team_batch(
+                 *_loop_args()[:7], np.zeros((1, 4, 2, 10)),
+                 np.zeros((1, 4, 2, 10)), np.zeros((1, 4, 2)),
+                 np.full((1, 2, 20), 100.0))[1]]
     for call in calls:
         if torch.cuda.is_available():
             out = call()
@@ -259,8 +276,9 @@ def test_unported_branches_raise(change, monkeypatch):
     configuration but the condensed, simplex-eliminated one on the "fused"
     backend (with or without SQP) takes the generic branch through
     qp_batch.solve, never the lanes-last kernel K1a; backend="fused" there
-    reaches K1b, which is built for the low-level QP's n 43 only, and
-    raises; the pure-JAX "lanes" backend is not ported and raises."""
+    reaches K1b, which is built for the low-level QP's shapes only
+    ((n, me) = (43, 30) and (25, 12)), and raises; the pure-JAX "lanes"
+    backend is not ported and raises."""
     kw = dict(condensed=True, backend="fused")
     cfg = change.pop("cfg", MpcConfig(use_sqp=True, sqp_iters=2,
                                       elide_simplex=True,
@@ -354,11 +372,43 @@ def _loop_args(bsz=2):
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False)),
 ], ids=["xla", "ll_reduced", "est_cfg", "stiction", "push", "uncondensed"])
 def test_run_batch_unported_options_raise(change):
+    """The options of the JAX package's run_batch that the port does not run
+    raise NotImplementedError: estimation in the loop, stiction, pushes,
+    and on backend "fused" an NMPC off the condensed lanes-last branch
+    (it would need K1b at n 41, me 28). Backend "xla" and the reduced LL
+    build raised too until they were ported; they now run the loop (one
+    stand and one trot tick) to finite states."""
     args = list(_loop_args())
+    match = r"\(41, 28\)" if "mpc_cfg" in change else None
+    ported = set(change) <= {"backend", "ll_reduced"}
     if "mpc_cfg" in change:
         args[0] = change.pop("mpc_cfg")
-    with pytest.raises(NotImplementedError):
+    if ported:
+        res = closedloop.run_batch(*args, device="cpu", **change)
+        assert res.com_hist.shape == (2, 1, 1, 3)
+        assert torch.isfinite(res.sim.q).all() and res.qp_ok.min() == 1.0
+        return
+    with pytest.raises(NotImplementedError, match=match):
         closedloop.run_batch(*args, device="cpu", **change)
+
+
+@pytest.mark.parametrize("change", [
+    dict(est_cfg=object()), dict(backend="lanes"),
+    dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=True)),
+], ids=["est_cfg", "lanes", "condensed_not_elided"])
+def test_run_team_batch_unported_options_raise(change):
+    """run_team_batch raises on estimation in the loop (ROADMAP M8), on the
+    JAX package's pure-JAX "lanes" backend, and on backend "fused" for an
+    NMPC that would need K1b at (n, me) = (17, 4)."""
+    args = list(_loop_args())[:7] + [np.zeros((1, 4, 2, 10)),
+                                      np.zeros((1, 4, 2, 10)),
+                                      np.zeros((1, 4, 2)),
+                                      np.full((1, 2, 20), 100.0)]
+    match = r"\(17, 4\)" if "mpc_cfg" in change else None
+    if "mpc_cfg" in change:
+        args[0] = change.pop("mpc_cfg")
+    with pytest.raises(NotImplementedError, match=match):
+        closedloop.run_team_batch(*args, device="cpu", **change)
 
 
 def test_whole_body_state_round_trip():

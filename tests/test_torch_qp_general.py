@@ -163,7 +163,7 @@ def test_qp_batch_unported_options_raise(change, monkeypatch):
     and "pallas" now run the step-fused IPM without calling K1b, and Ruiz
     equilibrates and then calls K1b, each solving the QP (x = 0). An
     inequality-only QP on the "fused" backend still reaches K1b, which is
-    built for me 30 only, and raises there."""
+    built for (n, me) = (43, 30) and (25, 12) only, and raises there."""
     calls = []
     fused = qp_fused.solve
     monkeypatch.setattr(qp_fused, "solve",
@@ -174,7 +174,7 @@ def test_qp_batch_unported_options_raise(change, monkeypatch):
         ops[2], ops[3] = ops[2][:, :0], ops[3][:, :0]
     cfg = change.pop("cfg", QpConfig())
     if noeq:
-        with pytest.raises(ValueError, match="me=30"):
+        with pytest.raises(ValueError, match="got n=43, me=0"):
             qp_batch.solve(*ops, cfg, **change)
         assert len(calls) == 1
         return
