@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Five paths, each driven through the entry point a user calls:
+Seven paths, each driven through the entry point a user calls:
 
 * the batched CBF-NMPC control cycle (`srbx_torch.mpc_batch.run_nmpc_batch`
   on its lanes-last fused branch, kernel K1a) at the benchmark operating
@@ -28,16 +28,25 @@ Five paths, each driven through the entry point a user calls:
   production point: S 1024 scenarios x 4 agents = 4096 lanes, float32, the
   condensed lanes-last NMPC with the neighbour circle (K1a), the reduced LL
   QP after 5 Ruiz sweeps (K1b at n 25 / me 12), K2a and K2b; 300 stand
-  ticks and 3 domains of 172.
+  ticks and 3 domains of 172;
+* the NMPC cycle on backend "fused" off the benchmark's configuration
+  (`run_nmpc_batch(backend="fused")`): uncondensed at the reference shape
+  (K1b at n 41 / me 28, mi 92 and 112), condensed with the simplex rows
+  kept (K1b at n 17 / me 4) and condensed, simplex-eliminated with the box
+  rows kept (K1a at mi 92 and 112), at B = 131072, float32;
+* the whole-body loop at `scripts/bench_wholebody.py`'s default batch
+  configuration (the uncondensed NMPC through K1b (41, 28), the full LL QP
+  through K1b (43, 30)) at B = 4096, float32, 300 stand ticks and 1 domain.
 
-Phases, each printing JSON lines:
+Phases, each printing JSON lines (14 runs after 11, before 12):
 
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
 2. build     - compile every CUDA source in srbx_torch/csrc with nvcc (one
                process per source), report ptxas registers and spills, each
                kernel's resident warps per SM and K2's and K3's launch
-               geometry, and fail if a float32 build of K1a, K1b, K2a, K2b,
-               K3a or K3b spills;
+               geometry (K1a at mi 28 to 116, K1b at each shape and mi of
+               its paths), and fail if any float32 build of K1a, K1b,
+               K2a, K2b, K3a or K3b spills;
 3. kernel    - K1a against its plain PyTorch version on the card, on the
                cycle's own QPs (mi 28 cold, 48 and 52 warm), in float64
                (strict config) and float32 (relaxed and strict); then, as
@@ -59,6 +68,10 @@ Phases, each printing JSON lines:
                domain): finite, COM height, exact
                launch counts, LL ticks/s; and the first 64 lanes in float64
                through the kernels and through the plain versions;
+7b. wholebody_uncondensed - run_batch as in 7 with bench_wholebody's
+               default MpcConfig (uncondensed: K1b (41, 28) twice a
+               domain): finite, COM height, exact launch counts by shape,
+               LL ticks/s and the LL-QP ok share;
 8. wb_times  - K1b, K2a and K2b at the loop's shapes against their plain
                versions and, for K2, one PyTorch call (library_ms); K2's
                device time from a replayed CUDA graph beside its
@@ -114,7 +127,26 @@ Phases, each printing JSON lines:
                through K3a/K3b, K2a/K2b (backend "pallas", float64) at the
                golden's bounds.
 
-Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+14. nmpc_fused - (a) K1b at (41, 28) (mi 92, 112, 116) and (17, 4) (mi 28,
+               48, 52, 92, 112, 116) on 4093 random well-conditioned QPs,
+               K1a at mi 92, 112, 116 on 16379, float64 (1e-9, equal flags
+               and per-lane iterations), with resident warps; (b) each on
+               mixed ragged lanes at mi 116 as phase "mixed"; (c) each on
+               the NMPC's own QPs (cold, SCP, SCP with the neighbour
+               circle), float64 strict and float32 relaxed, trajectories and
+               converged shares against the plain version, and K1a through
+               qp_fused.solve at me = 0; (d) ms per launch against the plain
+               version on those QPs, float32, B = 131072 (K1b (41, 28) at
+               B = 4096 too), with bounds; (e) the uncondensed cycle on
+               "fused" at B = 131072, relaxed and strict: finite, exactly
+               1 + sqp_iters K1b launches at (41, 28), converged share, the
+               first 512 lanes in float64 against the plain version, and
+               cycles/s beside phase 11's "pallas" cycle; (f) one cycle each
+               of the (17, 4) and the box-rows-kept K1a configurations:
+               exact launches, finite, cycles/s.
+
+Then a {"kernels": [...]} line (K1b (41, 28), K1b (17, 4) and K1a above
+64 rows on rows of their own) and, last, {"ok": true, "device": {...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or outside the repository, it exits non-zero and prints no result.
 """
@@ -128,6 +160,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -145,6 +178,8 @@ CAMPAIGN_LOOP = 40_000   # the A/B runner's APF rollout steps
 SCALING_SCENARIOS = 4096  # the campaign's scaling line
 TEAM_SCENARIOS = 1024    # the team phase: S x 4 agents = 4096 lanes
 TEAM_DEPTH = (300, 3, 172)  # its stand ticks, domains and ticks a domain
+NMPC_CHECK_LANES = 16384  # lanes of the NMPC's own QPs held to K1's plain
+K1_NEW_REPS = 3          # K1b launches per timing at B = 131072
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
@@ -154,6 +189,44 @@ _START = time.perf_counter()
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def stopping_test(data, sol):
+    """The IPM's relative residual and gap, recomputed in float64 from a
+    returned (x, y, z, s) (batch-leading; me may be 0), and the gap test's
+    scale 1 + |objective|."""
+    P, c, A, b, G, h = (t.double() for t in data)
+    x, y, z, s = (t.double() for t in (sol.x, sol.y, sol.z, sol.s))
+
+    def mv(m, v):
+        return torch.einsum("bij,bj->bi", m, v)
+
+    def mtv(m, v):
+        return torch.einsum("bij,bi->bj", m, v)
+
+    def amax(*ts):
+        return torch.stack([t.abs().amax(1) for t in ts
+                            if t.shape[1]]).amax(0)
+
+    px, gx, ax, gtz, aty = mv(P, x), mv(G, x), mv(A, x), mtv(G, z), \
+        mtv(A, y)
+    res = torch.maximum(
+        amax(px + c + gtz + aty) / amax(px, c, gtz, aty).clamp(min=1.0),
+        amax(gx + s - h, ax - b) / amax(gx, h, ax, b).clamp(min=1.0))
+    obj = 0.5 * (x * px).sum(1) + (c * x).sum(1)
+    return res, (s * z).sum(1), 1.0 + obj.abs()
+
+
+def certify(data, sol, qp_cfg, slack):
+    """Whether each lane that `sol` calls converged meets the stopping test
+    recomputed in float64 (`stopping_test`) within `slack`, and the largest
+    recomputed residual of those lanes."""
+    res, gap, gap_scale = stopping_test(data, sol)
+    conv = sol.converged
+    ok = ((res <= (qp_cfg.abstol + qp_cfg.reltol) * slack)
+          & (gap <= qp_cfg.abstol * gap_scale * slack))[conv]
+    return (ok.double().mean().item() if conv.any() else 1.0,
+            res[conv].max().item() if conv.any() else 0.0)
 
 
 def ipm_flops(n, me, mi, refine, lane_iters, cold):
@@ -1235,6 +1308,530 @@ def team_phase(dev, smi):
             "k1b_cases": k1b_cases, "k1b_f64_dx": k1b_f64_dx}
 
 
+def generic_cycle_qps(cfg, qp_cfg, lanes, other, condensed):
+    """The generic cycle's own QPs on `lanes` (run_nmpc_batch's lane
+    arguments, carry first), batch-leading, as its branch builds them:
+    uncondensed (n 41, me 28) or condensed with the simplex rows kept (n 17,
+    me 4). The cold first solve, then the first SCP round's solve with one
+    CBF circle and with two (the second `other` (B, 2), the neighbour), warm
+    from the first solve's plain solution under qp_cfg. Returns the cold
+    QP [P, c, A, b, G, h], the trajectory map (x -> the planned states and
+    inputs, (B, 24)) and [(case, G, h, x0)]."""
+    from srbx_torch import mpc, mpc_batch, sqp
+    from srbx_torch.ocp import (assemble, condense, condense_rows, contract,
+                                expand, expansion)
+    from srbx_torch.ops import qp_fused
+
+    carry, q, dq, toe, ci, pr, prd, a0, pob = lanes
+    dtype, bsz = q.dtype, q.shape[0]
+    ci_eff = mpc_batch.effective_contacts(carry, ci)
+    x0s, ref, foot = mpc_batch._lane_state(cfg, carry, q, dq, toe, pr, prd,
+                                           a0)
+    data = assemble(cfg, x0s, ref, foot, ci_eff, dtype=dtype)
+    n_traj = (cfg.n_state + cfg.n_input) * cfg.horizon
+    if condensed:
+        e_mat, e0 = expansion(cfg, x0s, foot, ci_eff, dtype=dtype)
+        data = condense(cfg, data, e_mat, e0)
+
+        def traj(x):
+            return expand(e_mat, e0, x)[:, :n_traj]
+    else:
+        def traj(x):
+            return x[:, :n_traj]
+    data = [t.contiguous() for t in data]
+    x = qp_fused.solve_plain(*data, qp_cfg).x
+    if condensed:
+        x = expand(e_mat, e0, x)
+    x_start = (contract(cfg, x, ci_eff) if condensed else x).contiguous()
+    circles = torch.stack([mpc.closest_obstacle(q, pob)[0], other], 1)
+    vel_g, vel_h = sqp._vel_rows(cfg, dtype, q.device)
+    cases = [(f"cold_mi{data[4].shape[1]}", data[4], data[5], None)]
+    for mask in ((1.0,), (1.0, 1.0)):
+        m = torch.tensor(mask, dtype=dtype, device=q.device).expand(
+            bsz, len(mask))
+        cbf_g, cbf_h = sqp._cbf_rows(cfg, x, circles[:, :len(mask)], m,
+                                     dtype)
+        rows = torch.cat([vel_g.expand(bsz, -1, -1), cbf_g], 1)
+        rhs = torch.cat([vel_h.expand(bsz, -1), cbf_h], 1)
+        if condensed:
+            rows, rhs = condense_rows(rows, rhs, e_mat, e0)
+        g = torch.cat([data[4], rows], 1).contiguous()
+        h = torch.cat([data[5], rhs], 1).contiguous()
+        cases.append((f"scp_mi{g.shape[1]}", g, h, x_start))
+    return data, traj, cases
+
+
+def traj_record(phase, kernel, case, dtype, cfg_name, lanes, mi, xk, xp,
+                traj_k, traj_p, conv_k, conv_p, it_k, it_p, cert):
+    """Kernel against plain version on one batch of the NMPC's own QPs:
+    trajectories (the planned states and inputs, which all-stance lanes
+    determine although x does not), converged shares and iterations. In
+    float64, rounding only: 1e-9 on the trajectory relative to max(1,
+    |traj|), equal flags and maximum iterations. In float32 each stops at
+    its own point inside the relaxed tolerance, whose primal scale holds
+    the box rows' 1e3 where they are kept, so the trajectories are
+    reported and the kernel's answers are certified instead: its converged
+    share at most 0.5 points below the plain version's, and every lane it
+    calls converged meeting the stopping test recomputed in float64
+    (`cert`, from `certify`, within 1 %)."""
+    dtraj = (traj_k - traj_p).abs() / traj_p.abs().clamp(min=1.0)
+    both = conv_k & conv_p
+    rec = {"phase": phase, "kernel": kernel, "case": case,
+           "dtype": str(dtype), "config": cfg_name, "lanes": lanes, "mi": mi,
+           "max_abs_dx": (xk - xp).abs().max().item(),
+           "max_rel_dtraj": dtraj.max().item(),
+           "max_rel_dtraj_converged": (dtraj[both].max().item()
+                                       if both.any() else 0.0),
+           "converged_kernel": conv_k.double().mean().item(),
+           "converged_plain": conv_p.double().mean().item(),
+           "converged_equal": bool((conv_k == conv_p).all()),
+           "max_iters_kernel": float(it_k.max()),
+           "max_iters_plain": float(it_p.max())}
+    if dtype == torch.float64:
+        rec["bound"] = ("trajectory |d| <= 1e-9 max(1, |traj|); equal "
+                        "converged flags and max iterations")
+        rec["ok"] = (rec["max_rel_dtraj"] <= 1e-9 and rec["converged_equal"]
+                     and rec["max_iters_kernel"] == rec["max_iters_plain"])
+    else:
+        rec["certified_share_of_converged"], \
+            rec["max_recomputed_res_converged"] = cert
+        rec["bound"] = ("kernel converged share >= plain's - 0.5 points; "
+                        "every kernel-converged lane meets the stopping test "
+                        "recomputed in float64 (x1.01)")
+        rec["ok"] = (rec["certified_share_of_converged"] == 1.0
+                     and rec["converged_kernel"]
+                     >= rec["converged_plain"] - 0.005)
+    emit(rec)
+    check(rec["ok"], f"{kernel} disagrees with its plain version: {rec}")
+    return rec
+
+
+def nmpc_fused_phase(dev, smi, inputs, p_start, relaxed, strict,
+                     pallas_times):
+    """Phase 14, the NMPC on backend "fused" off the benchmark's
+    configuration (see the module docstring). `pallas_times` holds phase
+    11's generic cycles/s by solver configuration. Returns the kernels-line
+    rows of K1b (41, 28), K1b (17, 4) and K1a above 64 rows, and the cases
+    and launches to add to the K1a and K1b rows."""
+    from srbx_torch import mpc_batch
+    from srbx_torch.config import MpcConfig, QpConfig
+    from srbx_torch.ops import qp_batch, qp_fused
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    cfg41 = MpcConfig(use_sqp=True, sqp_iters=2)
+    cfg17 = MpcConfig(use_sqp=True, sqp_iters=2, condensed=True,
+                      elide_box_rows=True)
+    cfg13 = MpcConfig(use_sqp=True, sqp_iters=2, condensed=True,
+                      elide_simplex=True)
+    n_traj = (cfg41.n_state + cfg41.n_input) * cfg41.horizon
+    mixed_cfg = QpConfig(abstol=1e-6, reltol=1e-6, reg_primal=1e-6,
+                         reg_dual=1e-6, max_iters=12)
+    errs = {"K1b_41_28": 0.0, "K1b_17_4": 0.0, "K1a_mi_gt_64": 0.0}
+    counts = (qp_fused.solve, qp_fused.solve_lanes_last)
+    counts0 = [k.launches for k in counts]
+    calls = [0, 0]
+
+    def other(dtype, count):
+        return torch.tensor(p_start[2:], dtype=dtype, device=dev).expand(
+            count, 2)
+
+    def lanes_last(*ts):
+        return [t.permute(*range(1, t.dim()), 0).contiguous() for t in ts]
+
+    def k1a_leading(qp, G, h, x, z, s_, stat):
+        """A K1a QP and solution batch-leading, with no equality rows."""
+        P, c, G, h = (t.movedim(-1, 0) for t in (qp.P, qp.c, G, h))
+        bsz, n = c.shape
+        sol = types.SimpleNamespace(x=x.T, y=c.new_zeros(bsz, 0), z=z.T,
+                                    s=s_.T, converged=stat[2] > 0.5)
+        return (P, c, c.new_zeros(bsz, 0, n), c.new_zeros(bsz, 0), G,
+                h), sol
+
+    # (a) random well-conditioned QPs of each new shape and mi, float64:
+    # rounding only, 1e-9 in x, equal flags and per-lane iterations
+    for key, (n, me), mis in (("K1b_41_28", (41, 28), (92, 112, 116)),
+                              ("K1b_17_4", (17, 4),
+                               (28, 48, 52, 92, 112, 116)),
+                              ("K1a_mi_gt_64", (13, 0), (92, 112, 116))):
+        for mi in mis:
+            lanes = WB_BATCH - 3 if me else NMPC_CHECK_LANES - 5
+            data = random_ll_qps(lanes, dev, f64, seed=mi, n=n, me=me, mi=mi)
+            if me:
+                sk = qp_fused.solve(*data, QpConfig())
+                sp = qp_fused.solve_plain(*data, QpConfig())
+                xk, xp, ck, cp, ik, ip = (sk.x, sp.x, sk.converged,
+                                          sp.converged, sk.lane_iters,
+                                          sp.lane_iters)
+                calls[0] += 1
+            else:
+                ops = lanes_last(*(data[i] for i in (0, 1, 4, 5)))
+                ok_ = qp_fused.solve_lanes_last(*ops, QpConfig())
+                op_ = qp_fused.solve_lanes_last_plain(*ops, QpConfig())
+                xk, xp, ck, cp, ik, ip = (ok_[0], op_[0], ok_[3][2] > 0.5,
+                                          op_[3][2] > 0.5, ok_[3][3],
+                                          op_[3][3])
+                calls[1] += 1
+            torch.cuda.synchronize()
+            rec = {"phase": "nmpc_fused_kernel", "kernel": key,
+                   "case": "random", "dtype": "torch.float64", "lanes": lanes,
+                   "n": n, "me": me, "mi": mi,
+                   "max_abs_dx": (xk - xp).abs().max().item(),
+                   "converged": ck.double().mean().item(),
+                   "converged_equal": bool((ck == cp).all()),
+                   "lane_iters_equal": bool((ik == ip).all()),
+                   "resident_warps_f32": qp_fused.resident_warps(
+                       f32, mi, bool(me), (n, me)),
+                   "resident_warps_f64": qp_fused.resident_warps(
+                       f64, mi, bool(me), (n, me)),
+                   "bound": ("max|dx| <= 1e-9; equal converged flags and "
+                             "per-lane iterations")}
+            rec["ok"] = (rec["max_abs_dx"] <= 1e-9 and rec["converged_equal"]
+                         and rec["lane_iters_equal"])
+            errs[key] = max(errs[key], rec["max_abs_dx"])
+            emit(rec)
+            check(rec["ok"], f"{key} disagrees with its plain version: {rec}")
+
+    # (b) ragged batches mixing converging, infeasible and one NaN lane in
+    # every block, as phase "mixed", at the largest mi
+    for key, (n, me), lanes in (("K1b (41, 28)", (41, 28), WB_BATCH - 3),
+                                ("K1b (17, 4)", (17, 4), WB_BATCH - 3),
+                                ("K1a mi 116", (13, 0), BATCH - 5)):
+        data = random_ll_qps(lanes, dev, f64, seed=9, n=n, me=me, mi=116)
+        infeasible = make_mixed(data[4], data[5])
+        if me:
+            sols = [fn(*data, mixed_cfg) for fn in (qp_fused.solve,
+                                                    qp_fused.solve_plain)]
+            calls[0] += 1
+            fin = [torch.isfinite(torch.cat([o.x, o.y, o.z, o.s], 1)).all(1)
+                   for o in sols]
+            args = (sols[0].x, sols[1].x, *fin, sols[0].converged,
+                    sols[1].converged, sols[0].lane_iters,
+                    sols[1].lane_iters)
+        else:
+            ops = lanes_last(*(data[i] for i in (0, 1, 4, 5)))
+            outs = [fn(*ops, mixed_cfg) for fn in (
+                qp_fused.solve_lanes_last, qp_fused.solve_lanes_last_plain)]
+            calls[1] += 1
+            fin = [torch.isfinite(x).all(0) & torch.isfinite(z).all(0)
+                   & torch.isfinite(s_).all(0) for x, z, s_, _ in outs]
+            args = (outs[0][0].T, outs[1][0].T, *fin, outs[0][3][2] > 0.5,
+                    outs[1][3][2] > 0.5, outs[0][3][3], outs[1][3][3])
+        torch.cuda.synchronize()
+        mixed_record(key, lanes, *args, infeasible, 7, mixed_cfg.max_iters)
+        del data
+
+    # (c) the NMPC's own QPs: cold, the first SCP round's with one CBF
+    # circle and with the neighbour's too; K1b at (41, 28) and (17, 4) on
+    # NMPC_CHECK_LANES lanes, K1a with the box rows kept on all B
+    def k1a_box_qps(dtype):
+        return cycle_qps(cfg13, strict, lanes_of(inputs, dev, dtype),
+                         other(dtype, BATCH),
+                         (("scp_mi112", (1.0,)), ("scp_mi116", (1.0, 1.0))),
+                         cold="cold_mi92")
+
+    for dtype, qp_cfg, cfg_name in ((f64, strict, "strict"),
+                                    (f32, relaxed, "relaxed")):
+        for key, cfg, condensed in (("K1b_41_28", cfg41, False),
+                                    ("K1b_17_4", cfg17, True)):
+            lanes = lanes_of(inputs, dev, dtype, NMPC_CHECK_LANES)
+            data, traj, cases = generic_cycle_qps(
+                cfg, strict, lanes, other(dtype, NMPC_CHECK_LANES), condensed)
+            for case, G, h, x0 in cases:
+                d = data[:4] + [G, h]
+                sk = qp_fused.solve(*d, qp_cfg, x0=x0)
+                sp = qp_fused.solve_plain(*d, qp_cfg, x0=x0)
+                torch.cuda.synchronize()
+                calls[0] += 1
+                rec = traj_record("nmpc_fused_kernel", key, case, dtype,
+                                  cfg_name, NMPC_CHECK_LANES, G.shape[1],
+                                  sk.x, sp.x, traj(sk.x), traj(sp.x),
+                                  sk.converged, sp.converged, sk.lane_iters,
+                                  sp.lane_iters,
+                                  certify(d, sk, qp_cfg, 1.01))
+                if dtype == f64:
+                    errs[key] = max(errs[key], rec["max_rel_dtraj"])
+            del data, cases, lanes
+        qp, cases = k1a_box_qps(dtype)
+        direct = {}
+        for case, G, h, x0 in cases:
+            xk, zk, sk_, stk = qp_fused.solve_lanes_last(qp.P, qp.c, G, h,
+                                                         qp_cfg, x0=x0)
+            direct[case] = xk
+            xp, _, _, stp = qp_fused.solve_lanes_last_plain(qp.P, qp.c, G, h,
+                                                            qp_cfg, x0=x0)
+            torch.cuda.synchronize()
+            calls[1] += 1
+            rec = traj_record(
+                "nmpc_fused_kernel", "K1a_mi_gt_64", case, dtype, cfg_name,
+                BATCH, G.shape[0], xk, xp,
+                mpc_batch.expand_ll(qp, xk)[:, :n_traj],
+                mpc_batch.expand_ll(qp, xp)[:, :n_traj], stk[2] > 0.5,
+                stp[2] > 0.5, stk[3], stp[3],
+                certify(*k1a_leading(qp, G, h, xk, zk, sk_, stk), qp_cfg,
+                        1.01))
+            if dtype == f64:
+                errs["K1a_mi_gt_64"] = max(errs["K1a_mi_gt_64"],
+                                           rec["max_rel_dtraj"])
+        if dtype == f64:
+            # an inequality-only QP through qp_fused.solve (me = 0) runs
+            # K1a, as the JAX package's solve runs its noeq kernel there:
+            # the same launch as solve_lanes_last on the same lanes, so
+            # bitwise its x; against the plain version, the trajectory
+            case, G, h, x0 = cases[1]
+            lead = [t.movedim(-1, 0).contiguous() for t in (qp.P, qp.c, G, h,
+                                                            x0)]
+            no_a = lead[1].new_zeros(BATCH, 0, 13)
+            no_b = lead[1].new_zeros(BATCH, 0)
+            n0 = qp_fused.solve_lanes_last.launches
+            sk = qp_fused.solve(lead[0], lead[1], no_a, no_b, lead[2],
+                                lead[3], qp_cfg, x0=lead[4])
+            sp = qp_fused.solve_plain(lead[0], lead[1], no_a, no_b, lead[2],
+                                      lead[3], qp_cfg, x0=lead[4])
+            torch.cuda.synchronize()
+            calls[1] += 1
+            traj_k = mpc_batch.expand_ll(qp, sk.x.T)[:, :n_traj]
+            traj_p = mpc_batch.expand_ll(qp, sp.x.T)[:, :n_traj]
+            rec = {"phase": "nmpc_fused_kernel", "kernel": "K1a via "
+                   "qp_fused.solve (me = 0)", "case": case,
+                   "dtype": "torch.float64", "lanes": BATCH,
+                   "bitwise_solve_lanes_last": bool(torch.equal(
+                       sk.x.T, direct[case])),
+                   "max_abs_dx": (sk.x - sp.x).abs().max().item(),
+                   "max_rel_dtraj": ((traj_k - traj_p).abs()
+                                     / traj_p.abs().clamp(min=1.0)).max()
+                   .item(),
+                   "converged_equal": bool((sk.converged
+                                            == sp.converged).all()),
+                   "y_shape": list(sk.y.shape),
+                   "k1a_launches": qp_fused.solve_lanes_last.launches - n0,
+                   "bound": ("one K1a launch, bitwise solve_lanes_last's x; "
+                             "against the plain version trajectory |d| <= "
+                             "1e-9 max(1, |traj|) and equal converged "
+                             "flags; y (B, 0)")}
+            rec["ok"] = (rec["k1a_launches"] == 1
+                         and rec["bitwise_solve_lanes_last"]
+                         and rec["max_rel_dtraj"] <= 1e-9
+                         and rec["converged_equal"]
+                         and rec["y_shape"] == [BATCH, 0])
+            emit(rec)
+            check(rec["ok"], f"qp_fused.solve at me = 0: {rec}")
+        del qp, cases, direct
+    check([k.launches - c for k, c in zip(counts, counts0)] == calls,
+          "the fused kernels' counters did not advance once per call")
+
+    # (d) each new case's ms per launch against its plain version's, on the
+    # cycle's own QPs, float32, relaxed, B = 131072 (and K1b (41, 28)'s
+    # cold QP at B = 4096 too), with its bound from the run's iterations
+    by_case = {"K1b_41_28": {}, "K1b_17_4": {}, "K1a_mi_gt_64": {}}
+    timing = [("K1b_41_28", cfg41, False, BATCH),
+              ("K1b_41_28", cfg41, False, WB_BATCH),
+              ("K1b_17_4", cfg17, True, BATCH)]
+    for key, cfg, condensed, count in timing:
+        lanes = lanes_of(inputs, dev, f32, count)
+        data, _, cases = generic_cycle_qps(cfg, strict, lanes,
+                                           other(f32, count), condensed)
+        for case, G, h, x0 in (cases if count == BATCH else cases[:1]):
+            d = data[:4] + [G, h]
+
+            def kern():
+                return qp_fused.solve(*d, relaxed, x0=x0)
+
+            def plain():
+                return qp_fused.solve_plain(*d, relaxed, x0=x0)
+
+            sol = kern()
+            plain()
+            p1 = event_ms(plain, 1)
+            t1 = event_ms(kern, K1_NEW_REPS)
+            t2 = event_ms(kern, K1_NEW_REPS)
+            p2 = event_ms(plain, 1)
+            row = dict(n=d[1].shape[1], me=d[2].shape[1], mi=G.shape[1],
+                       lanes=count, ms=(t1 + t2) / 2, plain_ms=(p1 + p2) / 2,
+                       mean_lane_iters=sol.lane_iters.double().mean().item(),
+                       **bound(*k1b_work(d, sol, relaxed.kkt_refine_iters)))
+            by_case[key][f"nmpc_{case}_b{count}"] = row
+            emit({"phase": "nmpc_fused_times", "kernel": key, "case": case,
+                  "dtype": "float32", "config": "relaxed",
+                  "kernel_ms": [t1, t2], "plain_ms": [p1, p2], **row,
+                  "device": smi})
+        del data, cases, lanes
+    qp, cases = k1a_box_qps(f32)
+    for case, G, h, x0 in cases:
+        def kern_a():
+            return qp_fused.solve_lanes_last(qp.P, qp.c, G, h, relaxed,
+                                             x0=x0)
+
+        def plain_a():
+            return qp_fused.solve_lanes_last_plain(qp.P, qp.c, G, h, relaxed,
+                                                   x0=x0)
+
+        stat = kern_a()[3]
+        plain_a()
+        p1 = event_ms(plain_a, 1)
+        t1 = event_ms(kern_a, REPS)
+        t2 = event_ms(kern_a, REPS)
+        p2 = event_ms(plain_a, 1)
+        row = dict(mi=G.shape[0], lanes=BATCH, ms=(t1 + t2) / 2,
+                   plain_ms=(p1 + p2) / 2,
+                   mean_lane_iters=stat[3].double().mean().item(),
+                   **bound(*k1a_work(qp.P, qp.c, G, h, x0, stat[3],
+                                     relaxed.kkt_refine_iters)))
+        by_case["K1a_mi_gt_64"][f"nmpc_box_rows_{case}"] = row
+        emit({"phase": "nmpc_fused_times", "kernel": "K1a_mi_gt_64",
+              "case": case, "dtype": "float32", "config": "relaxed",
+              "kernel_ms": [t1, t2], "plain_ms": [p1, p2], **row,
+              "device": smi})
+    del qp, cases
+
+    # (e) the reference-shape cycle on "fused": run_nmpc_batch(backend=
+    # "fused", condensed=False) at B = 131072, float32, relaxed and strict,
+    # on the generic cycle's inputs; the QPs' shapes are recorded at
+    # qp_batch.solve (the wrappers' counters give the launches)
+    shapes = []
+    real_solve = qp_batch.solve
+
+    def recording_solve(*a, **kw):
+        shapes.append((a[1].shape[1], a[2].shape[1], a[4].shape[1]))
+        return real_solve(*a, **kw)
+
+    def counted(cfg, condensed, qp_cfg, args):
+        shapes.clear()
+        for k in counts:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(qp_batch, "solve", recording_solve):
+            out = mpc_batch.run_nmpc_batch(cfg, qp_cfg, *args,
+                                           backend="fused",
+                                           condensed=condensed)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            "K1b": qp_fused.solve.launches,
+            "K1a": qp_fused.solve_lanes_last.launches}
+
+    def rates(cfg, condensed, qp_cfg, args, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mpc_batch.run_nmpc_batch(cfg, qp_cfg, *args, backend="fused",
+                                     condensed=condensed)
+        torch.cuda.synchronize()
+        pipelined = BATCH * reps / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mpc_batch.run_nmpc_batch(cfg, qp_cfg, *args, backend="fused",
+                                     condensed=condensed)
+            torch.cuda.synchronize()
+        return pipelined, BATCH * reps / (time.perf_counter() - t0)
+
+    def finite(out):
+        return all(bool(torch.isfinite(getattr(out, n)).all()) for n in (
+            "alpha_com", "states", "inputs", "x", "cbf_margin"))
+
+    args = lanes_of(inputs, dev, f32)
+    mpc_batch.run_nmpc_batch(cfg41, relaxed, *args, backend="fused",
+                             condensed=False)            # warm-up
+    torch.cuda.synchronize()
+    launches = {}
+    for cfg_name, qp_cfg in (("relaxed", relaxed), ("strict", strict)):
+        out, wall, got = counted(cfg41, False, qp_cfg, args)
+        if cfg_name == "relaxed":
+            launches["generic_cycle_fused"] = got["K1b"]
+        expect = {"K1b": 1 + cfg41.sqp_iters, "K1a": 0}
+        pipelined, synced = rates(cfg41, False, qp_cfg, args, GEN_REPS)
+        rec = {"phase": "nmpc_fused_cycle", "what": "uncondensed, K1b "
+               "(41, 28)", "config": cfg_name, "lanes": BATCH,
+               "dtype": "float32", "qp_shapes": list(shapes),
+               "launches": got, "expected_launches": expect,
+               "converged": out.qp_converged.double().mean().item(),
+               "qp_iters": int(out.qp_iters), "wall_s": wall,
+               "finite": finite(out), "reps": GEN_REPS,
+               "cycles_per_s_pipelined": pipelined,
+               "cycles_per_s_synced": synced,
+               "pallas_cycles_per_s": pallas_times[cfg_name],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "bound": ("finite; exactly 1 + sqp_iters K1b launches, all "
+                         "at (41, 28), no K1a; first solve's converged "
+                         "share >= 0.9 relaxed"), "device": smi}
+        rec["ok"] = (rec["finite"] and got == expect
+                     and all(s[:2] == (41, 28) for s in shapes)
+                     and (cfg_name == "strict" or rec["converged"] >= 0.9))
+        emit(rec)
+        check(rec["ok"], f"fused generic cycle check failed: {rec}")
+
+    # the first lanes in float64 through K1b and through its plain version
+    args64 = lanes_of(inputs, dev, f64, CROSS_LANES)
+    with mock.patch.object(qp_fused, "solve", qp_fused.solve_plain):
+        ref64 = mpc_batch.run_nmpc_batch(cfg41, strict, *args64,
+                                         backend="fused", condensed=False)
+    ker64 = mpc_batch.run_nmpc_batch(cfg41, strict, *args64, backend="fused",
+                                     condensed=False)
+    torch.cuda.synchronize()
+    cross = {"phase": "nmpc_fused_cycle", "what": "f64 K1b vs plain",
+             "lanes": CROSS_LANES, "config": "strict",
+             "states": float((ker64.states - ref64.states).abs().max()),
+             "alpha_com": float((ker64.alpha_com
+                                 - ref64.alpha_com).abs().max()),
+             "converged_equal": bool((ker64.qp_converged
+                                      == ref64.qp_converged).all()),
+             "converged": ker64.qp_converged.double().mean().item(),
+             "bound": "states and alpha_com <= 1e-9; equal converged flags"}
+    cross["ok"] = (cross["states"] <= 1e-9 and cross["alpha_com"] <= 1e-9
+                   and cross["converged_equal"])
+    emit(cross)
+    check(cross["ok"], f"fused generic cycle cross-check failed: {cross}")
+    del args64, ref64, ker64
+
+    # (f) one cycle each of the condensed configuration with the simplex
+    # rows kept (K1b (17, 4)) and of the condensed, simplex-eliminated one
+    # with the box rows kept (K1a at mi 92 / 112)
+    for what, path, cfg, key, shape in (
+            ("condensed, K1b (17, 4)", "cycle_condensed_17_4", cfg17, "K1b",
+             (17, 4)),
+            ("condensed, simplex-eliminated, box rows kept, K1a",
+             "cycle_box_rows_kept", cfg13, "K1a", None)):
+        mpc_batch.run_nmpc_batch(cfg, relaxed, *args, backend="fused",
+                                 condensed=True)         # warm-up
+        out, wall, got = counted(cfg, True, relaxed, args)
+        launches[path] = got[key]
+        expect = {"K1b": 0, "K1a": 0}
+        expect[key] = 1 + cfg.sqp_iters
+        pipelined, _ = rates(cfg, True, relaxed, args, GEN_REPS)
+        rec = {"phase": "nmpc_fused_cycle", "what": what,
+               "config": "relaxed", "lanes": BATCH, "dtype": "float32",
+               "qp_shapes": list(shapes), "launches": got,
+               "expected_launches": expect,
+               "converged": out.qp_converged.double().mean().item(),
+               "qp_iters": int(out.qp_iters), "wall_s": wall,
+               "finite": finite(out), "reps": GEN_REPS,
+               "cycles_per_s_pipelined": pipelined,
+               "bound": "finite; exact launch counts", "device": smi}
+        rec["ok"] = (rec["finite"] and got == expect and all(
+            s[:2] == shape for s in shapes))
+        emit(rec)
+        check(rec["ok"], f"fused cycle check failed: {rec}")
+    emit({"phase": "nmpc_fused", "seconds": time.perf_counter() - t_phase})
+
+    rows = []
+    for key, name, source, main_case, path in (
+            ("K1b_41_28", "qp_general_41_28", "srbx_torch/csrc/qp_general.cu",
+             f"nmpc_cold_mi92_b{BATCH}", "generic_cycle_fused"),
+            ("K1b_17_4", "qp_general_17_4", "srbx_torch/csrc/qp_general.cu",
+             f"nmpc_cold_mi28_b{BATCH}", "cycle_condensed_17_4"),
+            ("K1a_mi_gt_64", "qp_fused_noeq_mi_gt_64",
+             "srbx_torch/csrc/qp_fused.cu", "nmpc_box_rows_scp_mi112",
+             "cycle_box_rows_kept")):
+        case = by_case[key][main_case]
+        rows.append(dict(
+            name=name, route="cuda", source=source,
+            replaces="srbx/ops/qp_fused.py:94", launches=launches[path],
+            max_abs_err=errs[key], library_ms=None,
+            **{f: case[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "bytes", "flops")},
+            launches_by_path={path: launches[path]}, by_case=by_case[key]))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1291,9 +1888,12 @@ def main() -> int:
                         for e in k2_ptxas if "kernelIf" in e["entry"])
     warps = {f"{k}_{d}_mi{mi}": qp_fused.resident_warps(dt, mi, k != "K1a",
                                                         shape)
-             for k, mis, shape in (("K1a", (28, 48, 52), None),
+             for k, mis, shape in (("K1a", (28, 48, 52, 92, 112, 116), None),
                                    ("K1b", (45,), (43, 30)),
-                                   ("K1b_25_12", (45,), (25, 12)))
+                                   ("K1b_25_12", (45,), (25, 12)),
+                                   ("K1b_41_28", (92, 112, 116), (41, 28)),
+                                   ("K1b_17_4", (28, 48, 52, 92, 112, 116),
+                                    (17, 4)))
              for d, dt in (("f32", torch.float32), ("f64", torch.float64))
              for mi in mis}
     # the other kernels at their paths' shapes, float32
@@ -1571,6 +2171,7 @@ def main() -> int:
     from srbx_torch.estimation import contact
     from srbx_torch.lowlevel import swing_delta_inv
     from srbx_torch.models import a1, rbd
+    from srbx_torch.ops import qp_batch
     from srbx_torch.sim import closedloop, wholebody as wb
 
     model = a1.model()
@@ -1654,29 +2255,6 @@ def main() -> int:
                 .double().mean().item(),
                 "max_iters_kernel": int(sk.iters),
                 "max_iters_plain": int(sp.iters)}
-
-    def stopping_test(data, sol):
-        """The IPM's relative residual and gap, recomputed in float64 from a
-        returned (x, y, z, s), and the gap test's scale 1 + |objective|."""
-        P, c, A, b, G, h = (t.double() for t in data)
-        x, y, z, s = (t.double() for t in (sol.x, sol.y, sol.z, sol.s))
-
-        def mv(m, v):
-            return torch.einsum("bij,bj->bi", m, v)
-
-        def mtv(m, v):
-            return torch.einsum("bij,bi->bj", m, v)
-
-        def amax(*ts):
-            return torch.stack([t.abs().amax(1) for t in ts]).amax(0)
-
-        px, gx, ax, gtz, aty = mv(P, x), mv(G, x), mv(A, x), mtv(G, z), \
-            mtv(A, y)
-        res = torch.maximum(
-            amax(px + c + gtz + aty) / amax(px, c, gtz, aty).clamp(min=1.0),
-            amax(gx + s - h, ax - b) / amax(gx, h, ax, b).clamp(min=1.0))
-        obj = 0.5 * (x * px).sum(1) + (c * x).sum(1)
-        return res, (s * z).sum(1), 1.0 + obj.abs()
 
     # K1b's arithmetic: random QPs at the LL QP's shape (n 43, me 30,
     # mi 45), well conditioned (diagonal P in [0.1, 10], a strictly
@@ -1787,9 +2365,9 @@ def main() -> int:
                  sols[1].lane_iters, infeasible, 7, mixed_cfg.max_iters)
 
     # ------------------------- 7. the whole-body loop ----------------------- #
-    def run_wb(dtype, lanes, loop):
+    def run_wb(dtype, lanes, loop, mpc_cfg=wb_mpc):
         return closedloop.run_batch(
-            wb_mpc, ll_cfg, motion_cfg, wb_relaxed, sim_cfg, loop, model,
+            mpc_cfg, ll_cfg, motion_cfg, wb_relaxed, sim_cfg, loop, model,
             wb_pr[:lanes].to(dtype), wb_prd[:lanes].to(dtype),
             torch.tensor(wb_a0[:lanes], dtype=dtype, device=dev),
             torch.tensor(wb_pobs[:lanes], dtype=dtype, device=dev),
@@ -1853,6 +2431,66 @@ def main() -> int:
                     and wb_rec["f64_kernel_vs_plain_com"] <= 1e-9)
     emit(wb_rec)
     check(wb_rec["ok"], f"whole-body loop check failed: {wb_rec}")
+
+    # -------------- 7b. the whole-body loop, uncondensed NMPC -------------- #
+    # bench_wholebody.py's default batch configuration: the NMPC uncondensed
+    # (K1b at (41, 28), its first solve and one SCP round a domain), the
+    # full LL QP (K1b at (43, 30)), cut in depth as phase 7 is
+    unc_mpc = MpcConfig(use_sqp=True, sqp_iters=1, condensed=False,
+                        elide_box_rows=False, elide_simplex=False)
+    run_wb(f32, WB_BATCH, closedloop.LoopConfig(2, 1, 2), unc_mpc)
+    torch.cuda.synchronize()
+    qp_shapes = {}
+    real_qp_solve = qp_batch.solve
+
+    def shape_counting(*a, **kw):
+        key = f"{a[1].shape[1]}_{a[2].shape[1]}"
+        qp_shapes[key] = qp_shapes.get(key, 0) + 1
+        return real_qp_solve(*a, **kw)
+
+    for k in all_counts:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(qp_batch, "solve", shape_counting):
+        res = run_wb(f32, WB_BATCH, wb_loop, unc_mpc)
+    torch.cuda.synchronize()
+    unc_wall = time.perf_counter() - t0
+    unc_launches = dict(zip(("K1a", "K1b", "K2a", "K2b"),
+                            (k.launches for k in all_counts)))
+    unc_expect = {"K1a": 0, "K1b": wb_ticks + 2 * wb_loop.n_domains,
+                  "K2a": 2 * wb_ticks, "K2b": 2 * wb_ticks}
+    shape_expect = {"43_30": wb_ticks, "41_28": 2 * wb_loop.n_domains}
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.sim.q, res.sim.qd, res.com_hist, res.qp_ok, res.mpc_ok,
+        res.tau_hist))
+    final_z = res.com_hist[:, -1, -1, 2]
+    unc_rec = {
+        "phase": "wholebody_uncondensed", "lanes": WB_BATCH,
+        "dtype": "float32", "mpc": "uncondensed (bench_wholebody default)",
+        "ticks_per_lane": wb_ticks, "stand_ticks": wb_loop.stand_ticks,
+        "n_domains": wb_loop.n_domains,
+        "ticks_per_domain": wb_loop.ticks_per_domain,
+        "cut": "300 stand ticks and 1 domain against the script's 800 and 6",
+        "wall_s": unc_wall, "ll_ticks_per_s": WB_BATCH * wb_ticks / unc_wall,
+        "ll_qp_ok": res.qp_ok.double().mean().item(),
+        "mpc_ok": res.mpc_ok.double().mean().item(),
+        "final_com_z_min": final_z.min().item(),
+        "final_com_z_max": final_z.max().item(),
+        "launches": unc_launches, "expected_launches": unc_expect,
+        "k1b_launches_by_shape": qp_shapes,
+        "expected_k1b_by_shape": shape_expect, "finite": finite,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "device": smi,
+        "bound": ("finite; final COM z > 0.2 m in every lane; exact launch "
+                  "counts: K1b (43, 30) 1 a tick, (41, 28) 2 a domain, K2a "
+                  "and K2b 2 a tick, no K1a")}
+    unc_rec["ok"] = (finite and final_z.min().item() > 0.2
+                     and unc_launches == unc_expect
+                     and qp_shapes == shape_expect)
+    emit(unc_rec)
+    check(unc_rec["ok"], f"uncondensed whole-body loop check failed: "
+          f"{unc_rec}")
+    del res
 
     # --------------------------- 8. whole-body times ------------------------ #
     # K1b by CUDA events around back-to-back calls (a launch lasts
@@ -1962,8 +2600,6 @@ def main() -> int:
           "cases": len(k2_recs), "launches": k2_calls})
 
     # ----------------------- 9b. K3 kernels vs plain ----------------------- #
-    from srbx_torch.ops import qp_batch
-
     gen = torch.Generator(device=dev).manual_seed(11)
     bad_lane = 7
 
@@ -2154,6 +2790,7 @@ def main() -> int:
     check(cross["ok"], f"generic cycle cross-check failed: {cross}")
 
     # ----------------------- 11. generic-cycle times ---------------------- #
+    pallas_times = {}
     for cfg_name, qp_cfg in (("relaxed", relaxed), ("strict", strict)):
         out = gen_cycle(args, qp_cfg)
         torch.cuda.synchronize()
@@ -2167,6 +2804,7 @@ def main() -> int:
             out = gen_cycle(args, qp_cfg)
             torch.cuda.synchronize()
         synced = BATCH * GEN_REPS / (time.perf_counter() - t0)
+        pallas_times[cfg_name] = {"pipelined": pipelined, "synced": synced}
         emit({"phase": "times", "what": "generic_cycle", "config": cfg_name,
               "lanes": BATCH, "dtype": "float32", "reps": GEN_REPS,
               "cycles_per_s_pipelined": pipelined,
@@ -2235,6 +2873,10 @@ def main() -> int:
             weighted_over={f"k{k}" + (f"_r{r}" if r else ""): n
                            for (_, k, r), n in shapes.items()},
             launches_by_path={"generic_cycle": launches}))
+    # -------------- 14. the NMPC on "fused" at its own shapes -------------- #
+    # (run before the campaign and the team, beside phase 11's cycle)
+    new_rows = nmpc_fused_phase(dev, smi, inputs, p_start, relaxed, strict,
+                                pallas_times)
     # ------------------------- 12. the campaign -------------------------- #
     camp = campaign_phase(dev, smi)
     k1a_row = kernels[0]
@@ -2259,6 +2901,15 @@ def main() -> int:
         if key == "K1b":
             row["by_case"].update(team["k1b_cases"])
             row["max_abs_err"] = max(row["max_abs_err"], team["k1b_f64_dx"])
+    for row in kernels:
+        if row["name"] == "qp_general":
+            row["launches_by_path"]["wholebody_uncondensed"] = \
+                unc_launches["K1b"]
+    for row in new_rows:
+        if row["name"] == "qp_general_41_28":
+            row["launches_by_path"]["wholebody_uncondensed"] = \
+                qp_shapes["41_28"]
+    kernels += new_rows
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,13 +5,15 @@
 // Replaces the Pallas TPU kernel srbx/ops/qp_fused.py::_make_kernel in its
 // noeq form (entered through solve_lanes_last). Each lane solves
 //     min 1/2 x'Px + c'x   s.t.  Gx <= h
-// with n = N (13 on the NMPC path) and mi <= kMaxMi runtime inequality rows,
-// from a least-squares cold start or a caller-given x0.
+// with n = N (13 on the NMPC path) and mi <= kMaxMi (128) runtime
+// inequality rows, from a least-squares cold start or a caller-given x0. The
+// NMPC's QPs have mi 28 / 48 / 52 with its box rows elided and 92 / 112 /
+// 116 without.
 //
 // Layout: every operand is lanes-last, (rows, cols, B) row-major. A block
-// holds kLanes consecutive lanes; it copies their P, c, G, h (and x0) into
+// holds LANES consecutive lanes; it copies their P, c, G, h (and x0) into
 // shared memory with neighbouring threads on neighbouring lanes, so every
-// load is a run of kLanes contiguous values, and it writes x, z, s and stat
+// load is a run of LANES contiguous values, and it writes x, z, s and stat
 // back the same way at the end. Each operand is read from device memory once
 // and each output written once.
 //
@@ -23,11 +25,13 @@
 // sum of M = P + G'WG takes the most, then the Cholesky, G'v and the solves.
 // The design:
 //   * kGroup = 16 threads per lane (two lanes a warp: a 13-wide vector
-//     operation leaves 3 of 16 threads idle, not 19 of 32), 16 lanes per
-//     block. Row r of G belongs to thread r mod kGroup; that row's s, z,
+//     operation leaves 3 of 16 threads idle, not 19 of 32), LANES = 16
+//     lanes per block up to mi 64 and 8 above (a lane's shared memory at mi
+//     116 is 8.2 KB in f32 and 16.3 KB in f64: 16 f64 lanes would not fit a
+//     block). Row r of G belongs to thread r mod kGroup; that row's s, z,
 //     1/s, rz, rc, ds and dz sit in the thread's registers (R =
-//     ceil(mi / kGroup) rows each, a template parameter, so no array is
-//     indexed at run time and nothing spills);
+//     ceil(mi / kGroup) rows each, 1 to 8, a template parameter, so no
+//     array is indexed at run time and nothing spills);
 //   * n-vectors (x's rows, dx, r1, rx, c) belong to thread k < N;
 //   * G dx and the step directions are local to a row's owner; G'v is
 //     summed by thread k over the rows in order, reading v from a shared
@@ -68,10 +72,8 @@
 
 namespace {
 
-constexpr int kMaxMi = 64;
+constexpr int kMaxMi = 128;
 constexpr int kGroup = 16;                 // threads per lane
-constexpr int kThreads = 256;
-constexpr int kLanes = kThreads / kGroup;  // lanes per block
 constexpr int kStatRows = 8;
 static_assert(kGroup < 32 && (32 % kGroup) == 0, "groups split a warp");
 
@@ -241,19 +243,25 @@ struct Lane {
   }
 };
 
-// Blocks of kThreads per SM that the registers must allow: as many as the
-// lanes' shared memory takes, three in f32; in f64, where it leaves room for
-// one block at mi > 26, one.
+// Lanes per block: 16 up to R = 4 (mi <= 64), 8 above.
+template <int R>
+__host__ __device__ constexpr int lanes_per_block() { return R <= 4 ? 16 : 8; }
+
+// Blocks per SM that the registers must allow: as many as the lanes' shared
+// memory takes, three in f32; in f64, where it leaves room for one block at
+// mi > 26 (16 lanes) or mi > 52 (8 lanes), one.
 template <typename T>
 constexpr int min_blocks() { return sizeof(T) == 4 ? 3 : 1; }
 
 template <typename T, int N, int R>
-__global__ void __launch_bounds__(kThreads, min_blocks<T>())
+__global__ void __launch_bounds__(lanes_per_block<R>() * kGroup, min_blocks<T>())
 qp_fused_noeq_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __restrict__ G,
                      const T* __restrict__ h, const T* __restrict__ x0, T* __restrict__ x_out,
                      T* __restrict__ z_out, T* __restrict__ s_out, T* __restrict__ stat,
                      long long B, int mi, double abstol, double reltol, double reg_primal,
                      double sigma_min, double step_frac, int max_iters, int refine, int has_x0) {
+  constexpr int kLanes = lanes_per_block<R>();
+  constexpr int kThreads = kLanes * kGroup;
   extern __shared__ unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int stride = lane_stride<N>(mi);
@@ -542,7 +550,9 @@ constexpr int kMaxR = kMaxMi / kGroup;
 static_assert(kN >= 2 + kStatRows, "z, s and stat fit in G's region for any mi >= 1");
 
 template <typename T, int R>
-size_t smem_bytes(int mi) { return sizeof(T) * (size_t)kLanes * lane_stride<kN>(mi); }
+size_t smem_bytes(int mi) {
+  return sizeof(T) * (size_t)lanes_per_block<R>() * lane_stride<kN>(mi);
+}
 
 // Warps of this instantiation resident on one SM at mi rows, or -1.
 template <typename T, int R>
@@ -554,10 +564,11 @@ int resident_warps_r(int mi) {
           cudaSuccess ||
       cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                            (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    lanes_per_block<R>() * kGroup, smem) !=
           cudaSuccess)
     return -1;
-  return blocks * kThreads / 32;
+  return blocks * lanes_per_block<R>() * kGroup / 32;
 }
 
 template <typename T, int R = 1>
@@ -573,6 +584,7 @@ int launch_r(const void* P, const void* c, const void* G, const void* h, const v
              void* z, void* s, void* stat, long long B, int mi, double abstol, double reltol,
              double reg_primal, double sigma_min, double step_frac, int max_iters, int refine,
              int has_x0, void* stream) {
+  constexpr int kLanes = lanes_per_block<R>();
   const long long blocks = (B + kLanes - 1) / kLanes;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T, R>(mi);
@@ -583,7 +595,7 @@ int launch_r(const void* P, const void* c, const void* G, const void* h, const v
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, kLanes * kGroup, smem, (cudaStream_t)stream>>>(
       (const T*)P, (const T*)c, (const T*)G, (const T*)h, (const T*)x0, (T*)x, (T*)z, (T*)s,
       (T*)stat, B, mi, abstol, reltol, reg_primal, sigma_min, step_frac, max_iters, refine,
       has_x0);

@@ -5,12 +5,15 @@
 // noeq=False, entered through qp_fused.solve (via qp_batch.solve with
 // backend="fused"). Each lane solves
 //     min 1/2 x'Px + c'x   s.t.  Ax = b,  Gx <= h
-// with n = N and me = ME fixed at compile time and mi <= kMaxMi runtime
-// inequality rows, from the regularised least-squares KKT start, optionally
-// overwriting x by a caller-given x0. Two instantiations, chosen by (n, me)
-// at launch: (43, 30), the whole-body low-level QP, and (25, 12), its
-// reduced build with the 18 output-defect variables eliminated
-// (srbx/lowlevel.py::ll_qp_build_reduced); both at mi 45 on their paths.
+// with n = N and me = ME fixed at compile time and mi runtime inequality
+// rows, from the regularised least-squares KKT start, optionally
+// overwriting x by a caller-given x0. Four shapes, chosen by (n, me) at
+// launch: (43, 30), the whole-body low-level QP, and (25, 12), its reduced
+// build with the 18 output-defect variables eliminated
+// (srbx/lowlevel.py::ll_qp_build_reduced), both at mi 45 on their paths and
+// built for mi <= 64; (41, 28), the uncondensed NMPC QP, and (17, 4), the
+// condensed one with the simplex rows kept (srbx/ocp.py), at mi 28 to 116
+// on their paths and built for mi <= 128.
 //
 // Layout: batch-leading, as at the JAX package's API: P (B, N, N), c (B, N),
 // A (B, ME, N), b (B, ME), G (B, mi, N), h (B, mi), x0 (B, N); outputs x
@@ -47,6 +50,10 @@
 // The (25, 12) instantiation is the same design at smaller widths: a lane's
 // vectors fit one slot of warp 0, its 9.3 KB of shared memory (f32, mi 45)
 // let more lanes share an SM, and __launch_bounds__ asks for 12 of them.
+// (41, 28) is the (43, 30) design; (17, 4) the (25, 12) one. Above 64 rows
+// each thread owns R = 2 of them, t and t + kThreads (a template parameter,
+// so the rows' state stays in registers); mi <= 64 runs the R = 1 build,
+// the same code as before the second row was added.
 //
 // Semantics kept from the TPU kernel (they change numbers):
 //   * M = P + G' diag(w) G + delta_p I and S = A M^-1 A' + delta_d I, each
@@ -75,11 +82,12 @@ namespace {
 
 constexpr int kThreads = 64;                // threads per lane (one block)
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxMi = 64;
+constexpr int kMaxR = 2;                    // inequality rows per thread
+constexpr int kMaxMi = kThreads * kMaxR;    // 128
 constexpr int kStatRows = 8;
 constexpr int kRed = 8;                     // reduction slots per warp
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kThreads % 32 == 0 && kThreads >= kMaxMi, "rows fit the block");
+static_assert(kThreads % 32 == 0 && kThreads >= kStatRows, "rows fit the block");
 
 template <typename T>
 __device__ __forceinline__ T big_value();
@@ -498,14 +506,22 @@ struct Lane {
 // mi 45). At n 25 a lane's shared memory is 9.3 KB in f32 (18.6 in f64), so
 // 24 lanes would fit an SM; its n- and me-vectors take one warp-0 slot
 // each instead of two, and 12 f32 lanes (80 registers a thread) or 8 f64
-// lanes are asked for.
-template <typename T, int N>
+// lanes are asked for. At n 41 a lane takes 30.8 / 34.8 KB in f32 at mi
+// 92 / 116 (61.5 / 69.6 KB in f64): 6 f32 and 3 f64 lanes fit at any mi
+// up to 116. At n 17 a lane takes 9.9 KB in f32 at mi 116: registers set
+// the occupancy, as at n 25; the second row a thread (R = 2) costs
+// registers, so fewer lanes are asked for there.
+template <typename T, int N, int R>
 constexpr int min_blocks() {
-  return N == 43 ? (sizeof(T) == 4 ? 8 : 4) : (sizeof(T) == 4 ? 12 : 8);
+  constexpr bool f32 = sizeof(T) == 4;
+  if (N == 43) return f32 ? 8 : 4;
+  if (N == 41) return f32 ? 6 : 3;
+  if (N == 17 && R > 1) return f32 ? 10 : 6;
+  return f32 ? 12 : 8;
 }
 
-template <typename T, int N, int ME>
-__global__ void __launch_bounds__(kThreads, min_blocks<T, N>())
+template <typename T, int N, int ME, int R>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, N, R>())
 qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __restrict__ A,
                   const T* __restrict__ b, const T* __restrict__ G, const T* __restrict__ h,
                   const T* __restrict__ x0, T* __restrict__ x_out, T* __restrict__ y_out,
@@ -526,7 +542,9 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   w.P = P + lane_idx * N * N;
   w.carve(reinterpret_cast<T*>(smem_raw));
   const bool w0 = w.warp == 0;
-  const bool row = t < mi;           // thread t owns inequality row t
+  // thread t owns inequality rows t + kThreads q, q < R
+  auto row_of = [&](int q) { return t + kThreads * q; };
+  auto has_row = [&](int q) { return row_of(q) < mi; };
 
   const T tol_res = T(abstol + reltol);
   const T tol_abs = T(abstol);
@@ -539,9 +557,14 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   // ------------------------------ load ------------------------------- //
   for (int e = t; e < ME * N; e += kThreads) w.A[e] = A[lane_idx * ME * N + e];
   for (int e = t; e < mi * N; e += kThreads) w.G[e] = G[lane_idx * mi * N + e];
-  // per-row state of row t; warp 0 holds the n- and me-vectors by slot
-  const T hr = row ? h[lane_idx * mi + t] : T(0);
-  T s = T(0), z = T(0), sinv = T(0), rz = T(0), rc = T(0), ds = T(0), dz = T(0);
+  // per-row state of the thread's rows; warp 0 holds the n- and me-vectors
+  // by slot
+  T hr[R], s[R], z[R], sinv[R], rz[R], rc[R], ds[R], dz[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    hr[q] = has_row(q) ? h[lane_idx * mi + row_of(q)] : T(0);
+    s[q] = z[q] = sinv[q] = rz[q] = rc[q] = ds[q] = dz[q] = T(0);
+  }
   T cv[NS], rx[NS], r1[NS], dx[NS];
   T bv[MS], ry[MS], r2[MS], dy[MS];
 #pragma unroll
@@ -563,14 +586,17 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   auto conv_test = [&](bool store, T* res_out, T* gap_out) {
     T maxs[4] = {T(0), T(0), T(0), T(0)};   // prim, prim_res, dual, rx_max
     T sums[3] = {T(0), T(0), T(0)};         // gap, x'Px, c'x
-    if (row) {
-      const T gx = w.g_dot(t, w.xs);
-      const T rzr = gx + s - hr;
-      if (store) rz = rzr;
-      maxs[0] = nmax(dev_abs(gx), dev_abs(hr));
-      maxs[1] = dev_abs(rzr);
-      sums[0] = s * z;
-      w.v[t] = z;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!has_row(q)) continue;
+      const int r = row_of(q);
+      const T gx = w.g_dot(r, w.xs);
+      const T rzr = gx + s[q] - hr[q];
+      if (store) rz[q] = rzr;
+      maxs[0] = nmax(maxs[0], nmax(dev_abs(gx), dev_abs(hr[q])));
+      maxs[1] = nmax(maxs[1], dev_abs(rzr));
+      sums[0] += s[q] * z[q];
+      w.v[r] = z[q];
     }
     if (w0) {
 #pragma unroll
@@ -626,7 +652,9 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
     }
     __syncthreads();
     for (int it = 0; it < refine; ++it) {
-      if (row) w.v[t] = (z * sinv) * w.g_dot(t, w.dxs);
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (has_row(q)) w.v[row_of(q)] = (z[q] * sinv[q]) * w.g_dot(row_of(q), w.dxs);
       w.p_mul(w.dxs, w.pxs);                // ends with a barrier
       if (w0) {
         T tn[NS], tme[MS], ddx[NS], ddy[MS];
@@ -658,7 +686,9 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
 
   // r1 = -rx - G' (rc * sinv + w * rz) in warp 0's slots.
   auto rhs = [&]() {
-    if (row) w.v[t] = rc * sinv + (z * sinv) * rz;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (has_row(q)) w.v[row_of(q)] = rc[q] * sinv[q] + (z[q] * sinv[q]) * rz[q];
     __syncthreads();
     if (w0) {
 #pragma unroll
@@ -671,11 +701,13 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   // (largest a in (0, 1] keeping s + a ds >= 0 and z + a dz >= 0).
   auto step_dirs_len = [&](T* ap, T* ad) {
     T mins[2] = {big_value<T>(), big_value<T>()};
-    if (row) {
-      ds = -rz - w.g_dot(t, w.dxs);
-      dz = (rc - z * ds) * sinv;
-      mins[0] = ds < T(0) ? -s / ds : big_value<T>();
-      mins[1] = dz < T(0) ? -z / dz : big_value<T>();
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!has_row(q)) continue;
+      ds[q] = -rz[q] - w.g_dot(row_of(q), w.dxs);
+      dz[q] = (rc[q] - z[q] * ds[q]) * sinv[q];
+      mins[0] = nmin(mins[0], ds[q] < T(0) ? -s[q] / ds[q] : big_value<T>());
+      mins[1] = nmin(mins[1], dz[q] < T(0) ? -z[q] / dz[q] : big_value<T>());
     }
     w.template reduce<0, 0, 2>(nullptr, nullptr, mins);
     *ap = nmin(T(1), mins[0]);
@@ -683,10 +715,14 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   };
 
   // ------------------------------ start ------------------------------ //
-  if (row) w.v[t] = T(1);
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (has_row(q)) w.v[row_of(q)] = T(1);
   __syncthreads();
   w.factor(T(1), dd);
-  if (row) w.v[t] = hr;
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (has_row(q)) w.v[row_of(q)] = hr[q];
   __syncthreads();
   if (w0) {
 #pragma unroll
@@ -706,15 +742,19 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   __syncthreads();
   {
     T mins[1] = {big_value<T>()};
-    if (row) {
-      s = hr - w.g_dot(t, w.xs);
-      mins[0] = s;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!has_row(q)) continue;
+      s[q] = hr[q] - w.g_dot(row_of(q), w.xs);
+      mins[0] = nmin(mins[0], s[q]);
     }
     w.template reduce<0, 0, 1>(nullptr, nullptr, mins);
     const T shift = nmax(T(0), T(-1.5) * mins[0]) + T(1);
-    if (row) {
-      s = s + shift;
-      z = T(1);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!has_row(q)) continue;
+      s[q] = s[q] + shift;
+      z[q] = T(1);
     }
   }
   conv_test(true, nullptr, nullptr);
@@ -724,30 +764,37 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
   for (int it = 0; it < max_iters; ++it) {
     ++iters;
     T sums[1] = {T(0)};
-    if (row) {
-      sums[0] = s * z;
-      sinv = T(1) / s;
-      w.v[t] = z * sinv;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!has_row(q)) continue;
+      sums[0] += s[q] * z[q];
+      sinv[q] = T(1) / s[q];
+      w.v[row_of(q)] = z[q] * sinv[q];
     }
     w.template reduce<1, 0, 0>(sums, nullptr, nullptr);
     const T mu = sums[0] / mi_t;
     w.factor(dp, dd);
 
     // affine (predictor) direction
-    rc = -s * z;
+#pragma unroll
+    for (int q = 0; q < R; ++q) rc[q] = -s[q] * z[q];
 #pragma unroll
     for (int q = 0; q < MS; ++q) r2[q] = -ry[q];
     rhs();
     kkt_solve_refined();
     T ap_a, ad_a;
     step_dirs_len(&ap_a, &ad_a);
-    T aff[1] = {row ? (s + ap_a * ds) * (z + ad_a * dz) : T(0)};
+    T aff[1] = {T(0)};
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (has_row(q)) aff[0] += (s[q] + ap_a * ds[q]) * (z[q] + ad_a * dz[q]);
     w.template reduce<1, 0, 0>(aff, nullptr, nullptr);
     const T ratio = (aff[0] / mi_t) / nmax(mu, smin);
     const T sigma = nmin(nmax(ratio * (ratio * ratio), T(0)), T(1));
 
     // combined (corrector) direction
-    rc = sigma * mu - s * z - ds * dz;
+#pragma unroll
+    for (int q = 0; q < R; ++q) rc[q] = sigma * mu - s[q] * z[q] - ds[q] * dz[q];
     rhs();
     kkt_solve_refined();
     T ap, ad;
@@ -761,9 +808,11 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
       for (int q = 0; q < NS; ++q)
         if (n_idx(q) < N) finite &= dev_finite(w.xs[n_idx(q)] + ap * dx[q]);
     }
-    if (row) {
-      finite &= dev_finite(s + ap * ds);
-      finite &= dev_finite(z + ad * dz);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!has_row(q)) continue;
+      finite &= dev_finite(s[q] + ap * ds[q]);
+      finite &= dev_finite(z[q] + ad * dz[q]);
     }
     if (!__syncthreads_and(finite)) break;  // NaN freeze: step not taken, lane done
     if (w0) {
@@ -778,9 +827,11 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
         if (r < ME) w.ys[r] = w.ys[r] + ad * dy[q];
       }
     }
-    if (row) {
-      s = s + ap * ds;
-      z = z + ad * dz;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (!has_row(q)) continue;
+      s[q] = s[q] + ap * ds[q];
+      z[q] = z[q] + ad * dz[q];
     }
     __syncthreads();
     if (conv_test(true, nullptr, nullptr)) break;
@@ -797,9 +848,11 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
     for (int q = 0; q < MS; ++q)
       if (n_idx(q) < ME) y_out[lane_idx * ME + n_idx(q)] = w.ys[n_idx(q)];
   }
-  if (row) {
-    z_out[lane_idx * mi + t] = z;
-    s_out[lane_idx * mi + t] = s;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    if (!has_row(q)) continue;
+    z_out[lane_idx * mi + row_of(q)] = z[q];
+    s_out[lane_idx * mi + row_of(q)] = s[q];
   }
   if (t < kStatRows) {
     T val = T(0);
@@ -814,9 +867,9 @@ qp_general_kernel(const T* __restrict__ P, const T* __restrict__ c, const T* __r
 template <typename T, int N, int ME>
 size_t smem_bytes(int mi) { return sizeof(T) * (size_t)Shape<N, ME>::count(mi); }
 
-template <typename T, int N, int ME>
+template <typename T, int N, int ME, int R>
 cudaError_t prepare(size_t smem) {
-  auto kernel = qp_general_kernel<T, N, ME>;
+  auto kernel = qp_general_kernel<T, N, ME, R>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
@@ -825,56 +878,59 @@ cudaError_t prepare(size_t smem) {
   return err;
 }
 
-template <typename T, int N, int ME>
-int launch_shape(const void* P, const void* c, const void* A, const void* b, const void* G,
-                 const void* h, const void* x0, void* x, void* y, void* z, void* s, void* stat,
-                 long long B, int mi, double abstol, double reltol, double reg_primal,
-                 double reg_dual, double sigma_min, double step_frac, int max_iters, int refine,
-                 int has_x0, void* stream) {
-  const size_t smem = smem_bytes<T, N, ME>(mi);
-  const cudaError_t err = prepare<T, N, ME>(smem);
-  if (err != cudaSuccess) return (int)err;
-  qp_general_kernel<T, N, ME><<<(unsigned)B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)P, (const T*)c, (const T*)A, (const T*)b, (const T*)G, (const T*)h,
-      (const T*)x0, (T*)x, (T*)y, (T*)z, (T*)s, (T*)stat, mi, abstol, reltol, reg_primal,
-      reg_dual, sigma_min, step_frac, max_iters, refine, has_x0);
-  return (int)cudaGetLastError();
+template <int N_, int ME_, int R_>
+struct Inst {
+  static constexpr int N = N_, ME = ME_, R = R_;
+};
+
+// Calls f(Inst<N, ME, R>{}) for the instantiation that serves (n, me) at mi
+// rows, or returns `refused` where none does: (43, 30) and (25, 12) are
+// built for mi <= 64 (one row a thread), (41, 28) and (17, 4) for mi <= 128
+// (R = 1 up to 64 rows, 2 above).
+template <typename F>
+int dispatch(int n, int me, int mi, int refused, F f) {
+  if (mi < 1 || mi > kMaxMi) return refused;
+  const bool two = mi > kThreads;
+  if (n == 43 && me == 30 && !two) return f(Inst<43, 30, 1>{});
+  if (n == 25 && me == 12 && !two) return f(Inst<25, 12, 1>{});
+  if (n == 41 && me == 28) return two ? f(Inst<41, 28, 2>{}) : f(Inst<41, 28, 1>{});
+  if (n == 17 && me == 4) return two ? f(Inst<17, 4, 2>{}) : f(Inst<17, 4, 1>{});
+  return refused;
 }
 
-// The instantiation for (n, me): (43, 30) or (25, 12); any other shape is
-// refused with cudaErrorInvalidValue.
 template <typename T>
 int launch(const void* P, const void* c, const void* A, const void* b, const void* G,
            const void* h, const void* x0, void* x, void* y, void* z, void* s, void* stat,
            long long B, int n, int me, int mi, double abstol, double reltol, double reg_primal,
            double reg_dual, double sigma_min, double step_frac, int max_iters, int refine,
            int has_x0, void* stream) {
-  const bool full = n == 43 && me == 30, reduced = n == 25 && me == 12;
-  if (!(full || reduced) || mi < 1 || mi > kMaxMi) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
   if (B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto go = full ? launch_shape<T, 43, 30> : launch_shape<T, 25, 12>;
-  return go(P, c, A, b, G, h, x0, x, y, z, s, stat, B, mi, abstol, reltol, reg_primal, reg_dual,
-            sigma_min, step_frac, max_iters, refine, has_x0, stream);
-}
-
-template <typename T, int N, int ME>
-int resident_warps_shape(int mi) {
-  const size_t smem = smem_bytes<T, N, ME>(mi);
-  int blocks = 0;
-  if (prepare<T, N, ME>(smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, qp_general_kernel<T, N, ME>,
-                                                    kThreads, smem) != cudaSuccess)
-    return -1;
-  return blocks * kWarps;
+  return dispatch(n, me, mi, (int)cudaErrorInvalidValue, [&](auto inst) {
+    using I = decltype(inst);
+    if (B <= 0) return 0;
+    const size_t smem = smem_bytes<T, I::N, I::ME>(mi);
+    const cudaError_t err = prepare<T, I::N, I::ME, I::R>(smem);
+    if (err != cudaSuccess) return (int)err;
+    qp_general_kernel<T, I::N, I::ME, I::R><<<(unsigned)B, kThreads, smem, (cudaStream_t)stream>>>(
+        (const T*)P, (const T*)c, (const T*)A, (const T*)b, (const T*)G, (const T*)h,
+        (const T*)x0, (T*)x, (T*)y, (T*)z, (T*)s, (T*)stat, mi, abstol, reltol, reg_primal,
+        reg_dual, sigma_min, step_frac, max_iters, refine, has_x0);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
 int resident_warps(int n, int me, int mi) {
-  if (mi < 1 || mi > kMaxMi) return -1;
-  if (n == 43 && me == 30) return resident_warps_shape<T, 43, 30>(mi);
-  if (n == 25 && me == 12) return resident_warps_shape<T, 25, 12>(mi);
-  return -1;
+  return dispatch(n, me, mi, -1, [&](auto inst) {
+    using I = decltype(inst);
+    const size_t smem = smem_bytes<T, I::N, I::ME>(mi);
+    int blocks = 0;
+    if (prepare<T, I::N, I::ME, I::R>(smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, qp_general_kernel<T, I::N, I::ME, I::R>, kThreads, smem) != cudaSuccess)
+      return -1;
+    return blocks * kWarps;
+  });
 }
 
 }  // namespace

@@ -26,7 +26,9 @@ Two branches, chosen as the JAX package chooses them:
   materialise multi-GB temporaries at B = 131072.
 * generic (everything else): `ocp.assemble`, optionally `ocp.condense`,
   and the batched IPM `ops.qp_batch.solve` with the given backend;
-  backend "pallas" runs the Cholesky kernels K3a and K3b.
+  backend "pallas" runs the Cholesky kernels K3a and K3b, backend "fused"
+  the general fused IPM (kernel K1b: n 41, me 28 uncondensed; n 17, me 4
+  condensed with the simplex rows kept), one launch per QP.
 """
 
 from __future__ import annotations
@@ -120,6 +122,41 @@ def expand_ll(qp: LanesLastQp, x_ll):
     return expand(qp.e, qp.e0, x_ll.T)
 
 
+def fused_qp_shape(cfg: MpcConfig, condensed: bool):
+    """(n, me, mi) of the QPs the cycle solves on backend "fused": n 41 /
+    me 28 uncondensed, 17 / 4 condensed, 13 / 0 condensed with the simplex
+    rows eliminated (the lanes-last branch); mi the most rows of any of its
+    solves (an SCP round's velocity and CBF rows and a neighbour circle
+    included)."""
+    if not condensed:
+        n, me = cfg.num_dec, cfg.n_eq
+    elif cfg.elide_simplex:
+        n, me = 3 * cfg.ndomain + 1, 0
+    else:
+        n, me = cfg.n_lambda + 1, cfg.n_input * cfg.horizon // 2
+    mi = cfg.n_ineq + (cfg.n_ineq_sqp - cfg.n_ineq + 4 if cfg.use_sqp else 0)
+    return n, me, mi
+
+
+def check_fused(cfg: MpcConfig, condensed: bool):
+    """Raise NotImplementedError where the cycle on backend "fused" would
+    reach a fused IPM at a shape it is not built for (K1a: n 13, mi <= 128;
+    K1b: `qp_fused.GENERAL_SHAPES`)."""
+    n, me, mi = fused_qp_shape(cfg, condensed)
+    if me == 0:
+        ok, built = (n == qp_fused.N_COND and mi <= qp_fused.MAX_MI,
+                     f"n = {qp_fused.N_COND} with mi <= {qp_fused.MAX_MI}")
+    else:
+        ok = mi <= qp_fused.GENERAL_SHAPES.get((n, me), 0)
+        built = qp_fused.shapes_built()
+    if not ok:
+        raise NotImplementedError(
+            f"on backend 'fused' this MpcConfig's NMPC solves QPs of (n, me) "
+            f"= ({n}, {me}) with up to {mi} inequality rows; the fused IPM "
+            f"{'K1a' if me == 0 else 'K1b'} is built for {built} (ROADMAP "
+            "Queue 2); backends 'pallas' and 'xla' run any MpcConfig")
+
+
 def _contract_ll(cfg: MpcConfig, x, ci_eff):
     return contract(cfg, x, ci_eff).T.contiguous()
 
@@ -149,11 +186,12 @@ def run_nmpc_batch(
     The default backend is the JAX package's, "pallas". The condensed,
     simplex-eliminated configuration of the benchmark and the whole-body
     loop takes the lanes-last branch through kernel K1a only with
-    backend="fused", which its callers pass. Any other call takes the
-    generic branch through `qp_batch.solve`: "pallas" (kernels K3a and K3b)
-    or "xla" (torch.linalg). There backend="fused" reaches kernel K1b,
-    which is built for the low-level QP's shapes only ((n, me) = (43, 30)
-    and (25, 12)) and raises on the NMPC's. qp_converged and qp_iters are the
+    backend="fused", which its callers pass (mi 28 / 48 / 52 with the box
+    rows elided, 92 / 112 / 116 without). Any other call takes the generic
+    branch through `qp_batch.solve`: "pallas" (kernels K3a and K3b), "xla"
+    (torch.linalg) or "fused" (kernel K1b at (n, me) = (41, 28)
+    uncondensed or (17, 4) condensed, mi up to 128; `check_fused` says
+    which configurations it serves). qp_converged and qp_iters are the
     first QP's, qp_iters its iteration count (max over lanes), as in the JAX
     package. Matrix products run in full float32 (no TF32); the caller's
     setting is restored after.

@@ -18,13 +18,17 @@ with operands batch-leading (B, ...). Backends:
   lane's x, y, z and s are frozen once it is done.
 * "fused": the general fused IPM (`srbx_torch.ops.qp_fused.solve`, kernel
   K1b on the card; built for (n, me) = (43, 30) and (25, 12), the full
-  and the reduced low-level QP).
+  and the reduced low-level QP, with mi <= 64, and (41, 28) and (17, 4),
+  the NMPC's uncondensed and condensed QP, with mi <= 128). Without
+  equality rows (me = 0) it runs the inequality-only kernel K1a (n 13,
+  mi <= 128), as the JAX package does.
 * "lanes" (the JAX package's pure-JAX unrolled kernels) is left out of the
   port and raises.
 
 Inequality-only problems (me = 0) are solved on the step-fused backends, and
 under Ruiz equilibration on every backend, with one inert 0 = 0 equality row,
-which the dual regularization keeps at dy = 0. With cfg.ruiz_iters the data
+which the dual regularization keeps at dy = 0 (on "fused" that row makes
+(n, 1), which K1b is not built for: it raises). With cfg.ruiz_iters the data
 are equilibrated first (`srbx_torch.ops.qp.ruiz_equilibrate`) and the solution
 is unscaled; as in the JAX package, cfg.ruiz_clip is not passed on (reference
 fault F7 in ROADMAP.md).
@@ -192,7 +196,11 @@ def solve(P, c, A, b, G, h, cfg: QpConfig = QpConfig(),
     if backend == "fused":
         from srbx_torch.ops import qp_fused
 
-        return qp_fused.solve(P, c, A, b, G, h, cfg, x0=x0)
+        # the kernel reads each lane's operands as one contiguous run (a
+        # no-op for operands that are so already, as the LL build's are)
+        return qp_fused.solve(
+            *(t.contiguous() for t in (P, c, A, b, G, h)), cfg,
+            x0=None if x0 is None else x0.contiguous())
     with full_f32_products():
         return _solve_impl(P, c, A, b, G, h, cfg, backend, x0)
 

@@ -8,17 +8,19 @@ package's fused Pallas kernel (`srbx/ops/qp_fused.py::_make_kernel`) for
 
 * `solve_lanes_last` (K1a, `noeq=True`, no A rows): operands lanes-last,
   P (n, n, B), c (n, B), G (mi, n, B), h (mi, B), x0 (n, B); the NMPC
-  cycle's path. CUDA kernel `srbx_torch/csrc/qp_fused.cu`, a half-warp
-  per lane, 16 lanes per block: the block copies its lanes' operands into
-  shared memory once (coalesced over neighbouring lanes), each thread owns
-  rows of G with their iterates in registers, and x, z, s and stat are
-  written back once.
+  cycle's path (n 13, mi up to 128). CUDA kernel
+  `srbx_torch/csrc/qp_fused.cu`, a half-warp per lane, 16 lanes per block
+  (8 above mi 64): the block copies its lanes' operands into shared memory
+  once (coalesced over neighbouring lanes), each thread owns rows of G with
+  their iterates in registers, and x, z, s and stat are written back once.
 * `solve` (K1b, `noeq=False`): operands batch-leading (B, ...), the JAX
   package's `qp_fused.solve`; the whole-body loop's LL QP, full (n 43,
-  me 30) or reduced (n 25, me 12). CUDA kernel
+  me 30) or reduced (n 25, me 12), and the NMPC's QP, uncondensed (n 41,
+  me 28) or condensed with its simplex rows (n 17, me 4). CUDA kernel
   `srbx_torch/csrc/qp_general.cu`, one instantiation per shape, two warps
   per lane (one lane per block) with the lane's operands and factors in
-  shared memory.
+  shared memory. With no equality rows (me = 0) `solve` runs K1a, as the
+  JAX package runs its noeq kernel there.
 
 Beside each kernel, a plain PyTorch version with the same semantics
 (`solve_lanes_last_plain`, `solve_plain`, both through `_ipm_plain`). The
@@ -41,14 +43,14 @@ import torch
 from srbx_torch.config import QpConfig
 
 N_COND = 13          # the condensed NMPC QP's size, the kernel's template N
-MAX_MI = 64          # the kernel's per-lane row capacity (kMaxMi)
+MAX_MI = 128         # K1a's per-lane row capacity (kMaxMi)
 STAT_ROWS = 8        # res, gap/mi, converged, iterations, 4 zero rows
 
 
 def resident_warps(dtype, mi, general=False, shape=(43, 30)):
     """Warps of K1a (or of K1b at `shape` = (n, me) with `general`)
     resident on one SM of the card at mi rows, from the CUDA occupancy
-    calculator."""
+    calculator; -1 where no instantiation serves that shape and mi."""
     from srbx_torch.ops import _build
 
     lib = _build.load()
@@ -303,7 +305,7 @@ def _check(P, c, G, h, x0):
 def solve_lanes_last(P, c, G, h, cfg: QpConfig = QpConfig(), x0=None):
     """Inequality-only fused IPM on lanes-last operands.
 
-    P (13, 13, B), c (13, B), G (mi, 13, B) with mi <= 64, h (mi, B),
+    P (13, 13, B), c (13, B), G (mi, 13, B) with mi <= 128, h (mi, B),
     optional warm start x0 (13, B); all contiguous, one dtype (float32 or
     float64), one device. Returns (x (13, B), z (mi, B), s (mi, B),
     stat (8, B)) with stat rows res, gap/mi, converged, iterations.
@@ -354,9 +356,11 @@ solve_lanes_last.launches = 0
 # General form (kernel K1b): equality and inequality rows, batch-leading.
 # --------------------------------------------------------------------------- #
 
-# the K1b kernel's template instantiations (n, me): the whole-body low-level
-# QP, full and reduced
-GENERAL_SHAPES = ((43, 30), (25, 12))
+# the K1b kernel's shapes (n, me) and the most inequality rows each is built
+# for: the whole-body low-level QP, full and reduced (one row a thread), and
+# the NMPC's QP, uncondensed and condensed with its simplex rows (two rows a
+# thread above 64)
+GENERAL_SHAPES = {(43, 30): 64, (25, 12): 64, (41, 28): 128, (17, 4): 128}
 
 
 def _lanes_last(t):
@@ -377,12 +381,30 @@ def _solution(x, y, z, s, stat):
     )
 
 
+def _solve_noeq(lanes_last_solve, P, c, G, h, cfg, x0):
+    """A batch-leading QP without equality rows through a lanes-last
+    inequality-only solve (K1a or its plain version); y (B, 0)."""
+    x, z, s, stat = lanes_last_solve(
+        *(_lanes_last(t).contiguous() for t in (P, c, G, h)), cfg,
+        None if x0 is None else _lanes_last(x0).contiguous())
+    return _solution(x.T, c.new_zeros(c.shape[0], 0), z.T, s.T, stat.T)
+
+
 def solve_plain(P, c, A, b, G, h, cfg: QpConfig = QpConfig(), x0=None):
-    """Plain PyTorch form of `solve`: any n, me >= 1, mi and device.
-    Batch-leading operands, computed lanes-last as the TPU kernel does."""
+    """Plain PyTorch form of `solve`: any n, me, mi and device.
+    Batch-leading operands, computed lanes-last as the TPU kernel does; with
+    me = 0 the inequality-only IPM (K1a's plain version), y (B, 0)."""
+    if A.shape[1] == 0:
+        return _solve_noeq(solve_lanes_last_plain, P, c, G, h, cfg, x0)
     x, y, z, s, stat = _ipm_plain(
         *(_lanes_last(t) for t in (P, c, A, b, G, h)), cfg, _lanes_last(x0))
     return _solution(x.T, y.T, z.T, s.T, stat.T)
+
+
+def shapes_built():
+    """K1b's (n, me) shapes and row capacities, as text for messages."""
+    return ", ".join(f"(n, me) = ({n}, {me}) with mi <= {cap}"
+                     for (n, me), cap in GENERAL_SHAPES.items())
 
 
 def _check_general(P, c, A, b, G, h, x0):
@@ -392,12 +414,18 @@ def _check_general(P, c, A, b, G, h, x0):
     if A.dim() != 3 or G.dim() != 3:
         raise ValueError("A and G must be (B, rows, n)")
     me, mi = A.shape[1], G.shape[1]
-    if (n, me) not in GENERAL_SHAPES:
-        built = " and ".join(f"n={a}, me={b}" for a, b in GENERAL_SHAPES)
-        raise ValueError(f"the general fused kernel is built for {built}, "
-                         f"got n={n}, me={me}")
-    if not 1 <= mi <= MAX_MI:
-        raise ValueError(f"mi must be in [1, {MAX_MI}], got {mi}")
+    if me == 0 and n != N_COND:
+        raise ValueError(
+            f"with no equality rows the fused IPM runs the inequality-only "
+            f"kernel, built for n={N_COND}; the general one is built for "
+            f"{shapes_built()}; got n={n}, me=0")
+    if me and (n, me) not in GENERAL_SHAPES:
+        raise ValueError(f"the general fused kernel is built for "
+                         f"{shapes_built()}, got n={n}, me={me}")
+    cap = GENERAL_SHAPES.get((n, me), MAX_MI)
+    if not 1 <= mi <= cap:
+        raise ValueError(f"mi must be in [1, {cap}] at n={n}, me={me}, "
+                         f"got {mi}")
     shapes = {"P": (bsz, n, n), "A": (bsz, me, n), "b": (bsz, me),
               "G": (bsz, mi, n), "h": (bsz, mi)}
     if x0 is not None:
@@ -427,17 +455,23 @@ def solve(P, c, A, b, G, h, cfg: QpConfig = QpConfig(), x0=None):
     operands; the JAX package's `qp_fused.solve` without `tile` and
     `interpret`.
 
-    P (B, n, n), c (B, n), A (B, me, n), b (B, me), G (B, mi, n) with
-    (n, me) = (43, 30) or (25, 12) and mi <= 64, h (B, mi), optional x0
-    (B, n); all contiguous, one dtype (float32 or float64), one device.
-    Returns a BatchSolution (with each lane's own iteration count in
-    `lane_iters`).
+    P (B, n, n), c (B, n), A (B, me, n), b (B, me), G (B, mi, n), h
+    (B, mi), optional x0 (B, n); all contiguous, one dtype (float32 or
+    float64), one device. (n, me) is one of GENERAL_SHAPES, with mi up to
+    its capacity: (43, 30) and (25, 12) with mi <= 64, (41, 28) and (17, 4)
+    with mi <= 128. Returns a BatchSolution (with each lane's own iteration
+    count in `lane_iters`).
 
     CPU tensors go to `solve_plain`. CUDA tensors launch the CUDA kernel
     (K1b), which adds one to `solve.launches`; any failure raises. Any B is
-    accepted: no padding lanes.
+    accepted: no padding lanes. With me = 0 (n 13, mi <= 128) the operands
+    are moved lanes-last and solved by `solve_lanes_last` (K1a, which counts
+    the launch), y (B, 0), as the JAX package's `solve` runs its noeq
+    kernel.
     """
     _check_general(P, c, A, b, G, h, x0)
+    if A.shape[1] == 0:
+        return _solve_noeq(solve_lanes_last, P, c, G, h, cfg, x0)
     if c.device.type == "cpu":
         return solve_plain(P, c, A, b, G, h, cfg, x0)
 

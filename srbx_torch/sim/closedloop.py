@@ -14,8 +14,9 @@ form, as in the JAX package:
 * "fused": the LL QP through the general fused IPM (kernel K1b), D^-1 and
   the swing operational-space inverse through `spd.inverse` (K2b), the
   physics solves through `spd.solve` (K2a) with the controller's D reused
-  by the first substep; the NMPC on its condensed lanes-last branch
-  (kernel K1a);
+  by the first substep; the NMPC through a fused IPM too: on its condensed
+  lanes-last branch kernel K1a, uncondensed K1b at (n, me) = (41, 28),
+  condensed with the simplex rows kept K1b at (17, 4);
 * "pallas": the same inverses and physics, the LL QP and the NMPC through
   the step-fused IPM with the Cholesky kernels K3a and K3b;
 * "xla": the JAX package's per-lane form: LU inverses
@@ -208,15 +209,8 @@ def _check_options(mpc_cfg, backend, est_cfg, stiction=False, push=None):
             "(ROADMAP.md); use 'fused', 'pallas' or 'xla'")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "fused" and not (mpc_cfg.condensed
-                                   and mpc_cfg.elide_simplex):
-        shape = "(17, 4)" if mpc_cfg.condensed else "(41, 28)"
-        raise NotImplementedError(
-            "on backend 'fused' the NMPC runs the condensed lanes-last branch "
-            "(MpcConfig(condensed=True, elide_simplex=True)); this "
-            f"configuration needs kernel K1b at (n, me) = {shape}, which is "
-            "not built (ROADMAP M7 b); backends 'pallas' and 'xla' run any "
-            "MpcConfig")
+    if backend == "fused":
+        mpc_batch.check_fused(mpc_cfg, mpc_cfg.condensed)
 
 
 def run_batch(
@@ -249,8 +243,10 @@ def run_batch(
     Ported: backends "fused", "pallas" and "xla" (module docstring), the
     full and the reduced LL build (`ll_reduced`, with the LL solver
     configuration `_resolve_ll_qp_cfg` picks), any MpcConfig on "pallas"
-    and "xla" and the condensed lanes-last one on "fused". est_cfg,
-    stiction and push raise NotImplementedError.
+    and "xla", and on "fused" any MpcConfig whose NMPC QPs the fused
+    kernels are built for (`mpc_batch.check_fused`: every MpcConfig at the
+    default horizon and ndomain). est_cfg, stiction and push raise
+    NotImplementedError.
     """
     _check_options(mpc_cfg, backend, est_cfg, stiction, push)
     device = torch.device("cuda" if device is None else device)

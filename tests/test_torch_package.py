@@ -220,7 +220,7 @@ def _qp(n=13, mi=28, bsz=5, dtype=torch.float64):
 
 @pytest.mark.parametrize("bad,error", [
     (lambda P, c, G, h: _qp(n=12), ValueError),                 # n != 13
-    (lambda P, c, G, h: _qp(mi=65), ValueError),                # mi > 64
+    (lambda P, c, G, h: _qp(mi=129), ValueError),               # mi > 128
     (lambda P, c, G, h: _qp(dtype=torch.float16), TypeError),
     (lambda P, c, G, h: (P, c, G.transpose(0, 2).contiguous()
                          .transpose(0, 2), h), ValueError),     # strided
@@ -276,9 +276,9 @@ def test_unported_branches_raise(change, monkeypatch):
     configuration but the condensed, simplex-eliminated one on the "fused"
     backend (with or without SQP) takes the generic branch through
     qp_batch.solve, never the lanes-last kernel K1a; backend="fused" there
-    reaches K1b, which is built for the low-level QP's shapes only
-    ((n, me) = (43, 30) and (25, 12)), and raises; the pure-JAX "lanes"
-    backend is not ported and raises."""
+    reaches K1b, which raised on the NMPC's shapes until (n, me) = (41, 28)
+    and (17, 4) were built and now solves them (no_elide_simplex); the
+    pure-JAX "lanes" backend is not ported and raises."""
     kw = dict(condensed=True, backend="fused")
     cfg = change.pop("cfg", MpcConfig(use_sqp=True, sqp_iters=2,
                                       elide_simplex=True,
@@ -305,10 +305,8 @@ def test_unported_branches_raise(change, monkeypatch):
     lanes_last = kw["condensed"] and kw["backend"] == "fused" and \
         cfg.elide_simplex
     solves = 1 + (cfg.sqp_iters if cfg.use_sqp else 0)
-    if kw["backend"] in ("fused", "lanes") and not lanes_last:
-        error = ValueError if kw["backend"] == "fused" else \
-            NotImplementedError
-        with pytest.raises(error):
+    if kw["backend"] == "lanes":
+        with pytest.raises(NotImplementedError):
             mpc_batch.run_nmpc_batch(cfg, QpConfig(), *_cycle_inputs(), **kw)
         assert calls == {"lanes_last": 0, "qp_batch": 1}
         return
@@ -370,17 +368,21 @@ def _loop_args(bsz=2):
     dict(backend="xla"), dict(ll_reduced=True), dict(est_cfg=object()),
     dict(stiction=True), dict(push=(None, None, None)),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False)),
-], ids=["xla", "ll_reduced", "est_cfg", "stiction", "push", "uncondensed"])
+    dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False, horizon=5)),
+], ids=["xla", "ll_reduced", "est_cfg", "stiction", "push", "uncondensed",
+        "unbuilt_shape"])
 def test_run_batch_unported_options_raise(change):
     """The options of the JAX package's run_batch that the port does not run
     raise NotImplementedError: estimation in the loop, stiction, pushes,
-    and on backend "fused" an NMPC off the condensed lanes-last branch
-    (it would need K1b at n 41, me 28). Backend "xla" and the reduced LL
-    build raised too until they were ported; they now run the loop (one
-    stand and one trot tick) to finite states."""
+    and on backend "fused" an NMPC whose QPs the fused kernels are not
+    built for (a horizon of 5 makes (n, me) = (47, 35)), before any tick.
+    Backend "xla", the reduced LL build and the uncondensed NMPC on "fused"
+    (K1b at n 41, me 28, built since) raised too until they were ported;
+    they now run the loop (one stand and one trot tick) to finite states."""
     args = list(_loop_args())
-    match = r"\(41, 28\)" if "mpc_cfg" in change else None
-    ported = set(change) <= {"backend", "ll_reduced"}
+    match = r"\(47, 35\)" if "mpc_cfg" in change else None
+    ported = (set(change) <= {"backend", "ll_reduced", "mpc_cfg"}
+              and change.get("mpc_cfg", MpcConfig()).horizon == 4)
     if "mpc_cfg" in change:
         args[0] = change.pop("mpc_cfg")
     if ported:
@@ -395,18 +397,28 @@ def test_run_batch_unported_options_raise(change):
 @pytest.mark.parametrize("change", [
     dict(est_cfg=object()), dict(backend="lanes"),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=True)),
-], ids=["est_cfg", "lanes", "condensed_not_elided"])
+    dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=True, horizon=5)),
+], ids=["est_cfg", "lanes", "condensed_not_elided", "unbuilt_shape"])
 def test_run_team_batch_unported_options_raise(change):
     """run_team_batch raises on estimation in the loop (ROADMAP M8), on the
     JAX package's pure-JAX "lanes" backend, and on backend "fused" for an
-    NMPC that would need K1b at (n, me) = (17, 4)."""
+    NMPC whose QPs the fused kernels are not built for (condensed with a
+    horizon of 5: (n, me) = (17, 5)). The condensed NMPC with its simplex
+    rows (K1b at (17, 4), built since) raised too; it now runs the team
+    (one stand and one trot tick, 4 agents) to finite states."""
     args = list(_loop_args())[:7] + [np.zeros((1, 4, 2, 10)),
                                       np.zeros((1, 4, 2, 10)),
                                       np.zeros((1, 4, 2)),
                                       np.full((1, 2, 20), 100.0)]
-    match = r"\(17, 4\)" if "mpc_cfg" in change else None
+    match = r"\(17, 5\)" if "mpc_cfg" in change else None
     if "mpc_cfg" in change:
         args[0] = change.pop("mpc_cfg")
+    if args[0].horizon == 4 and args[0].condensed and not change:
+        sims, com_ends, margins, llok = closedloop.run_team_batch(
+            *args, device="cpu")
+        assert com_ends.shape == (1, 1, 4, 3) and margins.shape == (1, 1, 4)
+        assert torch.isfinite(sims.q).all() and llok.min() == 1.0
+        return
     with pytest.raises(NotImplementedError, match=match):
         closedloop.run_team_batch(*args, device="cpu", **change)
 

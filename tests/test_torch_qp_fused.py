@@ -143,8 +143,9 @@ def _ll_qp(bsz, mi, dtype=torch.float64, seed=5):
 
 
 @pytest.mark.parametrize("bad,error,match", [
-    (lambda o: (o[0], o[1], torch.zeros(65, 13, 3, dtype=o[1].dtype),
-                torch.zeros(65, 3, dtype=o[1].dtype)), ValueError, "mi"),
+    # the case keeps its id from when K1a took mi <= 64; it takes 128 now
+    (lambda o: (o[0], o[1], torch.zeros(129, 13, 3, dtype=o[1].dtype),
+                torch.zeros(129, 3, dtype=o[1].dtype)), ValueError, "mi"),
     (lambda o: tuple(t.half() for t in o), TypeError, "dtype"),
     (lambda o: (o[0].float(),) + tuple(o[1:]), TypeError, "P is"),
     (lambda o: (o[0], o[1], o[2].transpose(1, 2).contiguous()

@@ -117,11 +117,24 @@ def _ll_shaped(dtype=torch.float64, bsz=3, mi=45):
             torch.ones(bsz, mi, dtype=dtype))
 
 
+def _nmpc_shaped(mi, bsz=3):
+    """An inert QP at the uncondensed NMPC's shape (n 41, me 28)."""
+    n, me = 41, 28
+    return (torch.eye(n, dtype=torch.float64).expand(bsz, n, n).contiguous(),
+            torch.zeros(bsz, n, dtype=torch.float64),
+            torch.eye(me, n, dtype=torch.float64).expand(bsz, me, n)
+            .contiguous(),
+            torch.zeros(bsz, me, dtype=torch.float64),
+            torch.zeros(bsz, mi, n, dtype=torch.float64),
+            torch.ones(bsz, mi, dtype=torch.float64))
+
+
 @pytest.mark.parametrize("bad,error", [
     (lambda o: _small_qps()[0], ValueError),                       # n 6
     (lambda o: (o[0], o[1], o[2][:, :29].contiguous(), o[3][:, :29]) + o[4:],
      ValueError),                                                  # me 29
     (lambda o: _ll_shaped(mi=65), ValueError),                     # mi > 64
+    (lambda o: _nmpc_shaped(mi=129), ValueError),                  # mi > 128
     (lambda o: tuple(t.half() for t in o), TypeError),
     (lambda o: o[:4] + (o[4].transpose(0, 1).contiguous()
                         .transpose(0, 1), o[5]), ValueError),      # strided
@@ -129,8 +142,8 @@ def _ll_shaped(dtype=torch.float64, bsz=3, mi=45):
     (lambda o: (o[0][:2],) + o[1:], ValueError),                   # shapes
     (lambda o: tuple(t.to("meta") for t in o), ValueError),        # device
     (lambda o: o + (o[1][:, :42].contiguous(),), ValueError),      # x0
-], ids=["n", "me", "mi", "dtype", "contiguous", "mixed", "shape", "device",
-        "x0"])
+], ids=["n", "me", "mi", "mi_41_28", "dtype", "contiguous", "mixed", "shape",
+        "device", "x0"])
 def test_general_wrapper_rejects_what_the_kernel_does_not_take(bad, error):
     ops = bad(_ll_shaped())
     ops = tuple(torch.as_tensor(a) for a in ops)
@@ -162,8 +175,9 @@ def test_qp_batch_unported_options_raise(change, monkeypatch):
     raised NotImplementedError before the step-fused IPM was ported: "xla"
     and "pallas" now run the step-fused IPM without calling K1b, and Ruiz
     equilibrates and then calls K1b, each solving the QP (x = 0). An
-    inequality-only QP on the "fused" backend still reaches K1b, which is
-    built for (n, me) = (43, 30) and (25, 12) only, and raises there."""
+    inequality-only QP on the "fused" backend reaches `qp_fused.solve`,
+    which runs it through the inequality-only kernel K1a, built for n 13
+    only, and raises at the LL QP's n 43."""
     calls = []
     fused = qp_fused.solve
     monkeypatch.setattr(qp_fused, "solve",
