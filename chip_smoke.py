@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Seven paths, each driven through the entry point a user calls:
+Nine paths, each driven through the entry point a user calls:
 
 * the batched CBF-NMPC control cycle (`srbx_torch.mpc_batch.run_nmpc_batch`
   on its lanes-last fused branch, kernel K1a) at the benchmark operating
@@ -28,7 +28,7 @@ Seven paths, each driven through the entry point a user calls:
   production point: S 1024 scenarios x 4 agents = 4096 lanes, float32, the
   condensed lanes-last NMPC with the neighbour circle (K1a), the reduced LL
   QP after 5 Ruiz sweeps (K1b at n 25 / me 12), K2a and K2b; 300 stand
-  ticks and 3 domains of 172;
+  ticks and the first 100 ticks of 1 domain;
 * the NMPC cycle on backend "fused" off the benchmark's configuration
   (`run_nmpc_batch(backend="fused")`): uncondensed at the reference shape
   (K1b at n 41 / me 28, mi 92 and 112), condensed with the simplex rows
@@ -36,9 +36,21 @@ Seven paths, each driven through the entry point a user calls:
   rows kept (K1a at mi 92 and 112), at B = 131072, float32;
 * the whole-body loop at `scripts/bench_wholebody.py`'s default batch
   configuration (the uncondensed NMPC through K1b (41, 28), the full LL QP
-  through K1b (43, 30)) at B = 4096, float32, 300 stand ticks and 1 domain.
+  through K1b (43, 30)) at B = 4096, float32, 100 stand ticks and the first
+  60 ticks of 1 domain;
+* estimation in the loop (`closedloop.run_batch(est_cfg=EstConfig())`:
+  the controller sees the sensor model's noisy readings through kinematic
+  odometry, the noise drawn from the JAX package's keys) at
+  `scripts/campaign_wholebody.py`'s batch-r est configuration: B = 4096,
+  float32, the condensed lanes-last NMPC (K1a), the reduced LL QP (K1b at
+  n 25 / me 12), K2a and K2b; 300 stand ticks and 1 domain;
+* the event-driven loop with estimation (`closedloop.run_batch_event`:
+  per-lane contact-triggered domains, an HL poll every 20 ticks, a 20-tick
+  latency) at `scripts/campaign_event.py`'s est configuration, B = 4096,
+  float32, the same kernels; 300 stand ticks and 400 trot ticks.
 
-Phases, each printing JSON lines (14 runs after 11, before 12):
+Phases, each printing JSON lines (14 runs after 11, before 12; 15 and 16
+after 13):
 
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
 2. build     - compile every CUDA source in srbx_torch/csrc with nvcc (one
@@ -145,14 +157,34 @@ Phases, each printing JSON lines (14 runs after 11, before 12):
                of the (17, 4) and the box-rows-kept K1a configurations:
                exact launches, finite, cycles/s.
 
+15. est_loop - run_batch with estimation in the loop (est_key key(11)) at
+               B = 4096 float32: finite, every lane standing (final COM z >
+               0.2 m), LL qp_ok >= 0.99, est RMSE <= 20 mm and <= 0.1 m/s
+               on every lane, exact launch counts; LL ticks/s; a profile of
+               5 trot ticks (the card's idle share) and the estimator's
+               host ms a tick (the PRNG, the sensors, the KF, kinEst, the
+               whole pipeline.update); the first 64 lanes in float64
+               through the kernels and the plain versions (q, COM and est
+               RMSE within 1e-9);
+16. event    - run_batch_event with estimation at B = 4096 float32: every
+               lane kicked off at tick 0 and ending a contact-triggered
+               domain of 121-180 ticks, finite, standing, LL qp_ok >=
+               0.95, exact launch counts (K1a two an HL poll); LL ticks/s,
+               domains and solves per lane, contact against time triggers,
+               est RMSE; the first 64 lanes in float64 through the kernels
+               and the plain versions (trigger ticks, domains and solves
+               equal, q, COM and est RMSE within 1e-9).
+
 Then a {"kernels": [...]} line (K1b (41, 28), K1b (17, 4) and K1a above
-64 rows on rows of their own) and, last, {"ok": true, "device": {...}}.
+64 rows on rows of their own; each row's launches by path include the two
+new phases') and, last, {"ok": true, "device": {...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or outside the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -177,7 +209,11 @@ WB_CROSS_LANES = 64      # whole-body lanes run in float64, kernels vs plain
 CAMPAIGN_LOOP = 40_000   # the A/B runner's APF rollout steps
 SCALING_SCENARIOS = 4096  # the campaign's scaling line
 TEAM_SCENARIOS = 1024    # the team phase: S x 4 agents = 4096 lanes
-TEAM_DEPTH = (300, 3, 172)  # its stand ticks, domains and ticks a domain
+TEAM_DEPTH = (300, 1, 100)  # its stand ticks, domains and ticks a domain
+EST_DEPTH = (300, 1, 172)   # estimation in the loop: stand, domains, ticks
+EVENT_DEPTH = (300, 400)    # the event-driven loop: stand and trot ticks
+EST_CROSS = (10, 1, 10)     # their float64 kernels-vs-plain runs, 64 lanes:
+EVENT_CROSS = (10, 165)     # a contact trigger near tick 160
 NMPC_CHECK_LANES = 16384  # lanes of the NMPC's own QPs held to K1's plain
 K1_NEW_REPS = 3          # K1b launches per timing at B = 131072
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -659,10 +695,16 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {evt.key: evt.self_device_time_total / 1e3
-               for evt in prof.key_averages()
-               if evt.device_type == torch.autograd.DeviceType.CUDA
-               and evt.self_device_time_total > 0}
+    # the device's events summed straight from the trace: building the
+    # profiler's event tree (events(), key_averages()) for every host op
+    # takes tens of seconds for a few whole-body ticks
+    by_name = {}
+    for evt in prof.profiler.kineto_results.events():
+        if (evt.device_type() == torch.autograd.DeviceType.CUDA
+                and not evt.is_async()):
+            ms = (evt.end_ns() - evt.start_ns()) / 1e6
+            if ms > 0:
+                by_name[evt.name()] = by_name.get(evt.name(), 0.0) + ms
     return wall, sum(by_name.values()), by_name
 
 
@@ -1065,7 +1107,7 @@ def team_golden_check(dev, smi, counters):
     return launches
 
 
-def team_phase(dev, smi):
+def team_phase(dev, smi, before_golden=None):
     """Phase 13, the scenario-batched 4-agent team (see the module
     docstring). Returns the kernels' launches in the team run and in the
     team golden, and K1b (25, 12)'s case for the kernels line."""
@@ -1084,16 +1126,17 @@ def team_phase(dev, smi):
 
     # (a) the team at its production point through the runner: S 1024 x 4
     # agents, fields of torch seed 7, loop 20,000, float32, cut in depth to
-    # 300 stand ticks and 3 domains. The LL QPs of stand tick 150 and of
-    # the second domain's tick 86 are kept for (c), the state at the last
-    # domain's start for (b).
+    # TEAM_DEPTH (300 stand ticks and the first 100 ticks of 1 domain). The
+    # LL QPs of stand tick 150 and of the last domain's middle tick are kept
+    # for (c), the state at the last domain's start for (b).
     pobs = run_team.sample_fields(TEAM_SCENARIOS, 7, f32, dev)
     run_team.run(pobs, closedloop.LoopConfig(2, 1, 2))         # warm-up
     torch.cuda.reset_peak_memory_stats()
     loop = closedloop.LoopConfig(*TEAM_DEPTH)
     ticks = loop.stand_ticks + loop.n_domains * loop.ticks_per_domain
     keep = {loop.stand_ticks // 2: "stand", loop.stand_ticks
-            + loop.ticks_per_domain + loop.ticks_per_domain // 2: "trot"}
+            + (loop.n_domains - 1) * loop.ticks_per_domain
+            + loop.ticks_per_domain // 2: "trot"}
     ll_qps, shapes, domain_args = {}, set(), []
     real_solve, real_domain = qp_batch.solve, closedloop._trot_domain
 
@@ -1301,7 +1344,10 @@ def team_phase(dev, smi):
                  sols[0].converged, sols[1].converged, sols[0].lane_iters,
                  sols[1].lane_iters, infeasible, 7, mixed_cfg.max_iters)
 
-    # (d) the team golden through K3 on the card
+    # (d) the team golden through K3 on the card (before_golden: work
+    # started beside it)
+    if before_golden is not None:
+        before_golden()
     golden_launches = team_golden_check(dev, smi, counters)
     emit({"phase": "team", "seconds": time.perf_counter() - t_phase})
     return {"team": team_launches, "team_golden": golden_launches,
@@ -1830,6 +1876,454 @@ def nmpc_fused_phase(dev, smi, inputs, p_start, relaxed, strict,
                                     "bytes", "flops")},
             launches_by_path={path: launches[path]}, by_case=by_case[key]))
     return rows
+
+
+def plain_kernels():
+    """A context in which the K1a, K1b, K2a and K2b wrappers run their plain
+    PyTorch versions (no launch, no count)."""
+    from srbx_torch.ops import qp_fused, spd
+
+    def plain_lanes_last(P, c, G, h, qp_cfg, x0=None):
+        return qp_fused.solve_lanes_last_plain(P, c, G, h, qp_cfg, x0=x0)
+
+    stack = contextlib.ExitStack()
+    for mod, name, fn in ((qp_fused, "solve", qp_fused.solve_plain),
+                          (qp_fused, "solve_lanes_last", plain_lanes_last),
+                          (spd, "solve", spd.solve_plain),
+                          (spd, "inverse", spd.inverse_plain)):
+        stack.enter_context(mock.patch.object(mod, name, fn))
+    return stack
+
+
+def host_ms(fn, reps=10):
+    """Wall ms per call of fn (host and device, a synchronize at the end)
+    over `reps` back-to-back calls, after one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def run_est(w, dtype, n, loop, ll_qp_cfg=None):
+    """closedloop.run_batch with estimation in the loop at the est_loop
+    phase's configuration (`w`: the whole-body phase's model, configurations
+    and references) on its first n lanes."""
+    from srbx_torch.estimation import pipeline
+    from srbx_torch.sim import closedloop
+    from srbx_torch.utils import prng
+
+    return closedloop.run_batch(
+        w.mpc, w.ll_cfg, w.motion_cfg, w.relaxed, w.sim_cfg, loop, w.model,
+        *w.lanes(dtype, n), dtype=dtype, backend="fused", ll_reduced=True,
+        ll_qp_cfg=ll_qp_cfg, est_cfg=pipeline.EstConfig(),
+        est_key=prng.key(11, w.dev), device=w.dev)
+
+
+def run_event(w, dtype, n, stand, ticks, ll_qp_cfg=None):
+    """closedloop.run_batch_event with estimation at the event phase's
+    configuration on the first n lanes of `w`."""
+    from srbx_torch.estimation import pipeline
+    from srbx_torch.sim import closedloop
+    from srbx_torch.utils import prng
+
+    loop = closedloop.LoopConfig(stand_ticks=stand, mpc_latency_ticks=20)
+    return closedloop.run_batch_event(
+        w.mpc, w.ll_cfg, w.motion_cfg, w.relaxed, w.sim_cfg, loop, w.model,
+        *w.lanes(dtype, n), ticks, dtype=dtype, backend="fused",
+        ll_reduced=True, ll_qp_cfg=ll_qp_cfg, mpc_period_ticks=20,
+        est_cfg=pipeline.EstConfig(), est_key=prng.key(11, w.dev),
+        device=w.dev)
+
+
+def loop_lanes(dev, pr, prd, a0, pobs):
+    """The lanes of the loops: lanes(dtype, n) -> their first n lanes'
+    (pr, prd, a0, pobs) on the card in dtype."""
+    def lanes(dtype, n):
+        return tuple(torch.as_tensor(t[:n]).to(device=dev, dtype=dtype)
+                     for t in (pr, prd, a0, pobs))
+    return lanes
+
+
+def _cross_ll_cfg(w):
+    # float64 holds the float32 runs' LL configuration (5 Ruiz sweeps): raw,
+    # the reduced LL QP's condition near 1e10 leaves its force directions
+    # to rounding (ROADMAP F10)
+    return dataclasses.replace(w.relaxed, ruiz_iters=5)
+
+
+def crosses(w, plain):
+    """The est_loop and event phases' float64 runs of their first
+    WB_CROSS_LANES lanes, through the kernels or (plain) through their
+    plain versions, as numpy."""
+    from srbx_torch.sim import closedloop
+
+    f64 = torch.float64
+    with plain_kernels() if plain else contextlib.nullcontext():
+        est = run_est(w, f64, WB_CROSS_LANES,
+                      closedloop.LoopConfig(*EST_CROSS), _cross_ll_cfg(w))
+        ev = run_event(w, f64, WB_CROSS_LANES, *EVENT_CROSS,
+                       _cross_ll_cfg(w))
+    out = {"est." + k: v for k, v in cross_record(est).items()}
+    out.update({"event." + k: v for k, v in cross_record(ev).items()})
+    return out
+
+
+def cross_record(res):
+    """What a float64 cross-check compares of a loop's result, as numpy."""
+    names = ("q", "com_hist", "est_rmse", "qp_ok", "trigger_hist",
+             "domains", "mpc_solves")
+    vals = (res.sim.q, res.com_hist, res.est_rmse, res.qp_ok,
+            getattr(res, "trigger_hist", None), getattr(res, "domains", None),
+            getattr(res, "mpc_solves", None))
+    return {k: v.cpu().numpy() for k, v in zip(names, vals)
+            if v is not None}
+
+
+def _side_main(queue, payload):
+    """A side process: the float64 runs of phases 15 and 16 through the
+    kernels or through the plain versions (payload["plain"]), sent back
+    through `queue` with the seconds they took, or the error that stopped
+    them."""
+    try:
+        sys.path.insert(0, str(ROOT))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        w = types.SimpleNamespace(**payload["cfgs"])
+        w.dev = torch.device(payload["dev"])
+        w.lanes = loop_lanes(w.dev, *payload["lanes"])
+        from srbx_torch.ops import qp_batch
+
+        t0 = time.perf_counter()
+        with qp_batch.full_f32_products():
+            out = crosses(w, payload["plain"])
+        queue.put({"ok": True, "seconds": time.perf_counter() - t0, **out})
+    except Exception:                          # noqa: BLE001 - reported
+        import traceback
+
+        queue.put({"ok": False, "error": traceback.format_exc()})
+
+
+def start_side(w, plain):
+    """Start a side process of the float64 runs through the kernels or the
+    plain versions (slow: the plain IPM and SPD solves are eager PyTorch,
+    host-bound), so that they overlap untimed work of this process and of
+    each other; returns (process, queue). The kernels are built already."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    n = WB_CROSS_LANES
+    payload = {"cfgs": {k: getattr(w, k) for k in (
+                   "model", "ll_cfg", "motion_cfg", "sim_cfg", "mpc",
+                   "relaxed")}, "dev": str(w.dev), "plain": plain,
+               "lanes": tuple(torch.as_tensor(t[:n]).cpu().numpy()
+                              for t in (w.pr, w.prd, w.a0, w.pobs))}
+    proc = ctx.Process(target=_side_main, args=(queue, payload),
+                       daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def finish_side(side, timeout=900):
+    """The side process's results (read before the join); the process is
+    joined, or stopped. A process that dies without a result fails within
+    seconds, not at the timeout."""
+    import queue as queue_mod
+
+    proc, queue = side
+    deadline = time.perf_counter() + timeout
+    out = None
+    while out is None and time.perf_counter() < deadline:
+        try:
+            out = queue.get(timeout=5)
+        except queue_mod.Empty:
+            if not proc.is_alive():
+                try:
+                    out = queue.get(timeout=5)
+                except queue_mod.Empty:
+                    break
+    if out is None:
+        out = {"ok": False, "error": "no result from the side process "
+               f"(exit code {proc.exitcode})"}
+    proc.join(timeout=60)
+    if proc.is_alive():
+        proc.terminate()
+        proc.join()
+    return out
+
+
+def estimation_phases(dev, smi, w, sides):
+    """Phases 15 (est_loop) and 16 (event): estimation in the loop through
+    run_batch, and the event-driven loop with estimation through
+    run_batch_event, at B = WB_BATCH float32 on the whole-body phase's lanes
+    (`w`); their first lanes in float64 through the kernels, held to the
+    same runs through the plain versions, both made by side processes
+    (`sides`: the kernels' and the plain versions'). Returns each phase's
+    kernel launches."""
+    from srbx_torch.estimation import kalman, kinest, pipeline
+    from srbx_torch.ops import pallas_linalg as plin, qp_fused, spd
+    from srbx_torch.sim import closedloop, sensors
+    from srbx_torch.utils import prng
+    from srbx_torch.utils import transforms as tf
+
+    f32 = torch.float32
+    counters = {"K1a": qp_fused.solve_lanes_last, "K1b": qp_fused.solve,
+                "K2a": spd.solve, "K2b": spd.inverse,
+                "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
+    est_cfg = pipeline.EstConfig()
+    # the side processes end before the timed runs start, so that they do
+    # not share the host or the card with them
+    t0 = time.perf_counter()
+    ker, plain = (finish_side(side) for side in sides)
+    side_wait = time.perf_counter() - t0
+    for out in (ker, plain):
+        check(out["ok"], f"the float64 runs failed: {out}")
+
+    # ------------------------- 15. est_loop --------------------------- #
+    t_phase = time.perf_counter()
+    loop = closedloop.LoopConfig(*EST_DEPTH)
+    ticks = loop.stand_ticks + loop.n_domains * loop.ticks_per_domain
+    run_est(w, f32, WB_BATCH, closedloop.LoopConfig(2, 1, 2))  # warm-up
+    torch.cuda.synchronize()
+    real_domain = closedloop._trot_domain
+    domain_args = []
+
+    def capturing_domain(*a, **kw):
+        domain_args[:] = [a]
+        return real_domain(*a, **kw)
+
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(closedloop, "_trot_domain", capturing_domain):
+        res = run_est(w, f32, WB_BATCH, loop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    expect = {"K1a": 2 * loop.n_domains, "K1b": ticks, "K2a": 2 * ticks,
+              "K2b": 2 * ticks, "K3a": 0, "K3b": 0}
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.sim.q, res.sim.qd, res.com_hist, res.est_rmse))
+    final_z = res.com_hist[:, -1, -1, 2]
+    rmse = res.est_rmse.double()
+    rec = {"phase": "est_loop", "lanes": WB_BATCH, "dtype": "float32",
+           "config": ("scripts/campaign_wholebody.py batch-r est: condensed "
+                      "lanes-last CBF-SQP NMPC (sqp_iters 1, relaxed), "
+                      "reduced LL build (5 Ruiz sweeps), backend fused, "
+                      "EstConfig() (kinEst), est_key key(11)"),
+           "cut": ("300 stand ticks and 1 domain against the script's 800 "
+                   "and 40; one field (the whole-body phase's lanes, "
+                   "obstacles 100 m away), not S fields"),
+           "ticks_per_lane": ticks, "wall_s": wall,
+           "ll_ticks_per_s": WB_BATCH * ticks / wall,
+           "ms_per_tick": wall * 1e3 / ticks,
+           "ll_qp_ok": res.qp_ok.double().mean().item(),
+           "ll_qp_ok_min": res.qp_ok.min().item(),
+           "mpc_ok": res.mpc_ok.double().mean().item(),
+           "est_rmse_pos_mm_p50": rmse[:, 0].median().item() * 1e3,
+           "est_rmse_pos_mm_max": rmse[:, 0].max().item() * 1e3,
+           "est_rmse_vel_p50": rmse[:, 1].median().item(),
+           "est_rmse_vel_max": rmse[:, 1].max().item(),
+           "final_com_z_min": final_z.min().item(),
+           "launches": launches, "expected_launches": expect,
+           "finite": finite,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "jax_record": ("docs/CAMPAIGN_WB_EST.json: 256 x 40 domains, "
+                          "worst lane 11.9 mm / 0.046 m/s (not gated)"),
+           "bound": ("finite; final COM z > 0.2 m on every lane; LL qp_ok "
+                     ">= 0.99; est RMSE <= 20 mm and <= 0.1 m/s on every "
+                     "lane; exact launch counts"), "device": smi}
+    rec["ok"] = (finite and final_z.min().item() > 0.2
+                 and rec["ll_qp_ok"] >= 0.99
+                 and rec["est_rmse_pos_mm_max"] <= 20.0
+                 and rec["est_rmse_vel_max"] <= 0.1 and launches == expect)
+    emit(rec)
+    check(rec["ok"], f"estimation in the loop: {rec}")
+    del res
+
+    # where a tick's time goes: 5 trot ticks from the last domain's start
+    # under torch.profiler; then the estimator's parts, host-inclusive, on
+    # the same state
+    (args,) = domain_args
+    five = args[4]._replace(ticks_per_domain=5)
+
+    def run5():
+        real_domain(*args[:4], five, *args[5:])
+
+    run5()
+    pwall, busy, by_name = device_profile(run5)
+    sims, asts, ests = args[6], args[7], args[11]
+    phases = asts.loco_tick / float(w.motion_cfg.trot_dom_ticks)
+    _, rd = sensors.read(est_cfg.sensor, w.sim_cfg, w.model, ests.sens, sims)
+    rot = tf.rot_xyz(rd.eul)
+    # base-pinned kinematics as the pipeline evaluates them (the body rates
+    # stand in for the Euler rates: the timing does not read the values)
+    q_fk = torch.cat([torch.zeros_like(rd.eul), rd.eul, rd.q_joints], 1)
+    qd_fk = torch.cat([torch.zeros_like(rd.eul), rd.gyro, rd.qd_joints], 1)
+    ci = ests.contact_ind.to(f32)
+
+    def prng_tick():
+        ks = prng.split(ests.sens.key, 7)
+        return prng.normals(ks[:, 1:], sensors._READ_SHAPES, f32)
+
+    def kf_tick():
+        toes = kinest.toes_and_velocities(w.model, q_fk, qd_fk)[0]
+        return kalman.update(
+            ests.kf, ci, rd.imu_accel, rot, -toes, dt=w.sim_cfg.dt,
+            accel_noise=est_cfg.kf_accel_noise,
+            meas_noise=est_cfg.kf_meas_noise, g=w.model.g,
+            swing_noise=est_cfg.kf_swing_noise)
+
+    def kin_tick():
+        return kinest.update(w.model, ests.kin, rd.q_joints, qd_fk, rd.eul,
+                             rd.foot_force, ci,
+                             force_thresh=est_cfg.contact_force_thresh)
+
+    est_ms = {
+        "prng": host_ms(prng_tick),
+        "sensors_read_with_prng": host_ms(lambda: sensors.read(
+            est_cfg.sensor, w.sim_cfg, w.model, ests.sens, sims)),
+        "kf_with_fk": host_ms(kf_tick),
+        "kinest_with_fk": host_ms(kin_tick),
+        "pipeline_update": host_ms(lambda: pipeline.update(
+            est_cfg, w.sim_cfg, w.model, ests, sims, phases))}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "est_loop", "what": "profile", "ticks": 5,
+          "lanes": WB_BATCH, "wall_ms_profiled": pwall * 1e3,
+          "device_busy_ms": busy, "idle_share": 1.0 - busy / (pwall * 1e3),
+          "estimator_host_ms_per_tick": est_ms,
+          "estimator_share_of_tick": est_ms["pipeline_update"]
+          / (wall * 1e3 / ticks),
+          "top_kernels_ms": top, "device": smi})
+    del args, domain_args, sims, asts, ests, rd
+    est_seconds = time.perf_counter() - t_phase
+
+    # --------------------------- 16. event ---------------------------- #
+    t_phase = time.perf_counter()
+    stand, n_ticks = EVENT_DEPTH
+    ticks = stand + n_ticks
+    run_event(w, f32, WB_BATCH, 2, 2)                          # warm-up
+    torch.cuda.synchronize()
+    real_nmpc = closedloop._nmpc
+    polls = [0]
+
+    def counting_nmpc(*a, **kw):
+        polls[0] += 1
+        return real_nmpc(*a, **kw)
+
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(closedloop, "_nmpc", counting_nmpc):
+        res = run_event(w, f32, WB_BATCH, stand, n_ticks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev_launches = {name: k.launches for name, k in counters.items()}
+    expect = {"K1a": 2 * polls[0], "K1b": ticks, "K2a": 2 * ticks,
+              "K2b": 2 * ticks, "K3a": 0, "K3b": 0}
+    trig = res.trigger_hist.cpu().numpy()
+    first, contact_gaps, time_gaps, lane_ok = [], 0, 0, []
+    for row in trig:
+        t = np.nonzero(row)[0]
+        gaps = np.diff(t)
+        first.append(int(t[0]) if t.size else -1)
+        contact_gaps += int((gaps < 181).sum())
+        time_gaps += int((gaps >= 181).sum())
+        lane_ok.append(bool(((gaps > 120) & (gaps < 181)).any()))
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.sim.q, res.sim.qd, res.com_hist, res.est_rmse))
+    final_z = res.com_hist[:, -1, 2]
+    rmse = res.est_rmse.double()
+    doms = res.domains.double()
+    solves = res.mpc_solves.double()
+    rec = {"phase": "event", "lanes": WB_BATCH, "dtype": "float32",
+           "config": ("scripts/campaign_event.py ... est: mpc_period_ticks "
+                      "20, mpc_latency_ticks 20, condensed lanes-last "
+                      "CBF-SQP NMPC (sqp_iters 1, relaxed), reduced LL "
+                      "build, backend fused, EstConfig(), est_key key(11)"),
+           "cut": "300 stand ticks and 400 trot ticks against 800 and 1720",
+           "ticks_per_lane": ticks, "wall_s": wall,
+           "ll_ticks_per_s": WB_BATCH * ticks / wall,
+           "hl_polls": polls[0],
+           "domains_p50": doms.median().item(),
+           "domains_min": doms.min().item(),
+           "mpc_solves_per_lane": [solves.min().item(), solves.mean().item(),
+                                   solves.max().item()],
+           "contact_triggered_domains": contact_gaps,
+           "time_triggered_domains": time_gaps,
+           "kickoff_at_tick_0": all(f == 0 for f in first),
+           "lanes_with_contact_domain_120_181": float(np.mean(lane_ok)),
+           "ll_qp_ok": res.qp_ok.double().mean().item(),
+           "ll_qp_ok_min": res.qp_ok.min().item(),
+           "est_rmse_pos_mm_p50": rmse[:, 0].median().item() * 1e3,
+           "est_rmse_pos_mm_max": rmse[:, 0].max().item() * 1e3,
+           "est_rmse_vel_p50": rmse[:, 1].median().item(),
+           "est_rmse_vel_max": rmse[:, 1].max().item(),
+           "final_com_z_min": final_z.min().item(), "finite": finite,
+           "launches": ev_launches, "expected_launches": expect,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bound": ("every lane kicked off at tick 0 and ends a contact-"
+                     "triggered domain of 121-180 ticks; finite; final COM "
+                     "z > 0.2 m on every lane; LL qp_ok >= 0.95; exact "
+                     "launch counts (K1a two a poll)"), "device": smi}
+    rec["ok"] = (rec["kickoff_at_tick_0"] and all(lane_ok) and finite
+                 and final_z.min().item() > 0.2 and rec["ll_qp_ok"] >= 0.95
+                 and ev_launches == expect)
+    emit(rec)
+    check(rec["ok"], f"event-driven loop: {rec}")
+    del res, trig
+    event_seconds = time.perf_counter() - t_phase
+
+    # the first lanes in float64 through the kernels, held to the plain
+    # versions' runs (the same inputs and key): q, COM and est RMSE within
+    # 1e-9, equal qp_ok; for the event loop also trigger ticks, domains and
+    # solves equal
+    for phase, path, what in (("est_loop", "est", list(EST_CROSS)),
+                              ("event", "event", list(EVENT_CROSS))):
+        k, p = ({key.split(".", 1)[1]: v for key, v in out.items()
+                 if key.startswith(path + ".")} for out in (ker, plain))
+        rec = {"phase": phase, "what": "float64 kernels vs plain",
+               "lanes": WB_CROSS_LANES, "ticks": what,
+               "ll_qp_cfg": "relaxed, 5 Ruiz sweeps (the float32 run's)",
+               "runs": "two side processes, beside the team golden",
+               "max_abs_dq": float(np.abs(k["q"] - p["q"]).max()),
+               "max_abs_dcom": float(np.abs(k["com_hist"]
+                                            - p["com_hist"]).max()),
+               "max_abs_drmse": float(np.abs(k["est_rmse"]
+                                             - p["est_rmse"]).max()),
+               "qp_ok_equal": bool(np.array_equal(k["qp_ok"], p["qp_ok"])),
+               "device": smi}
+        exact = ["qp_ok_equal"]
+        if path == "event":
+            trig = k["trigger_hist"]
+            rec.update(
+                trigger_ticks_equal=bool(np.array_equal(
+                    trig, p["trigger_hist"])),
+                triggers=int(trig.sum()),
+                lanes_with_a_trigger_after_tick_0=float(
+                    trig[:, 1:].any(1).mean()),
+                domains_equal=bool(np.array_equal(k["domains"],
+                                                  p["domains"])),
+                mpc_solves_equal=bool(np.array_equal(k["mpc_solves"],
+                                                     p["mpc_solves"])))
+            exact += ["trigger_ticks_equal", "domains_equal",
+                      "mpc_solves_equal"]
+        rec["bound"] = (f"{', '.join(exact)}; q, COM and est RMSE within "
+                        "1e-9")
+        rec["ok"] = (all(rec[e] for e in exact)
+                     and max(rec["max_abs_dq"], rec["max_abs_dcom"],
+                             rec["max_abs_drmse"]) <= 1e-9)
+        emit(rec)
+        check(rec["ok"], f"{phase}, kernels vs plain: {rec}")
+    emit({"phase": "est_loop", "seconds": est_seconds})
+    emit({"phase": "event", "seconds": event_seconds,
+          "float64_runs_s": {"kernels": ker["seconds"],
+                             "plain": plain["seconds"]},
+          "waited_for_the_side_processes_s": side_wait})
+    return {"est_loop": launches, "event": ev_launches}
 
 
 def main() -> int:
@@ -2392,13 +2886,10 @@ def main() -> int:
     final_z = res.com_hist[:, -1, -1, 2]
 
     # the first lanes in float64, through the kernels and through the plain
-    # versions, over 50 stand and 20 trot ticks
-    cross_loop = closedloop.LoopConfig(50, 1, 20)
+    # versions, over 20 stand and 10 trot ticks
+    cross_loop = closedloop.LoopConfig(20, 1, 10)
     ker64 = run_wb(torch.float64, WB_CROSS_LANES, cross_loop)
-    with mock.patch.object(qp_fused, "solve", qp_fused.solve_plain), \
-            mock.patch.object(qp_fused, "solve_lanes_last", plain_solve), \
-            mock.patch.object(spd, "solve", spd.solve_plain), \
-            mock.patch.object(spd, "inverse", spd.inverse_plain):
+    with plain_kernels():
         ref64 = run_wb(torch.float64, WB_CROSS_LANES, cross_loop)
     torch.cuda.synchronize()
     wb_rec = {
@@ -2435,7 +2926,10 @@ def main() -> int:
     # -------------- 7b. the whole-body loop, uncondensed NMPC -------------- #
     # bench_wholebody.py's default batch configuration: the NMPC uncondensed
     # (K1b at (41, 28), its first solve and one SCP round a domain), the
-    # full LL QP (K1b at (43, 30)), cut in depth as phase 7 is
+    # full LL QP (K1b at (43, 30)), cut in depth to 100 stand-up ticks and
+    # the first 60 ticks of a domain
+    unc_loop = wb_loop._replace(stand_ticks=100, ticks_per_domain=60)
+    unc_ticks = unc_loop.stand_ticks + unc_loop.ticks_per_domain
     unc_mpc = MpcConfig(use_sqp=True, sqp_iters=1, condensed=False,
                         elide_box_rows=False, elide_simplex=False)
     run_wb(f32, WB_BATCH, closedloop.LoopConfig(2, 1, 2), unc_mpc)
@@ -2452,14 +2946,14 @@ def main() -> int:
         k.launches = 0
     t0 = time.perf_counter()
     with mock.patch.object(qp_batch, "solve", shape_counting):
-        res = run_wb(f32, WB_BATCH, wb_loop, unc_mpc)
+        res = run_wb(f32, WB_BATCH, unc_loop, unc_mpc)
     torch.cuda.synchronize()
     unc_wall = time.perf_counter() - t0
     unc_launches = dict(zip(("K1a", "K1b", "K2a", "K2b"),
                             (k.launches for k in all_counts)))
-    unc_expect = {"K1a": 0, "K1b": wb_ticks + 2 * wb_loop.n_domains,
-                  "K2a": 2 * wb_ticks, "K2b": 2 * wb_ticks}
-    shape_expect = {"43_30": wb_ticks, "41_28": 2 * wb_loop.n_domains}
+    unc_expect = {"K1a": 0, "K1b": unc_ticks + 2 * unc_loop.n_domains,
+                  "K2a": 2 * unc_ticks, "K2b": 2 * unc_ticks}
+    shape_expect = {"43_30": unc_ticks, "41_28": 2 * unc_loop.n_domains}
     finite = all(bool(torch.isfinite(t).all()) for t in (
         res.sim.q, res.sim.qd, res.com_hist, res.qp_ok, res.mpc_ok,
         res.tau_hist))
@@ -2467,11 +2961,13 @@ def main() -> int:
     unc_rec = {
         "phase": "wholebody_uncondensed", "lanes": WB_BATCH,
         "dtype": "float32", "mpc": "uncondensed (bench_wholebody default)",
-        "ticks_per_lane": wb_ticks, "stand_ticks": wb_loop.stand_ticks,
-        "n_domains": wb_loop.n_domains,
-        "ticks_per_domain": wb_loop.ticks_per_domain,
-        "cut": "300 stand ticks and 1 domain against the script's 800 and 6",
-        "wall_s": unc_wall, "ll_ticks_per_s": WB_BATCH * wb_ticks / unc_wall,
+        "ticks_per_lane": unc_ticks, "stand_ticks": unc_loop.stand_ticks,
+        "n_domains": unc_loop.n_domains,
+        "ticks_per_domain": unc_loop.ticks_per_domain,
+        "cut": ("100 stand ticks and the first 60 ticks of 1 domain "
+                "against the script's 800 and 6 domains"),
+        "wall_s": unc_wall,
+        "ll_ticks_per_s": WB_BATCH * unc_ticks / unc_wall,
         "ll_qp_ok": res.qp_ok.double().mean().item(),
         "mpc_ok": res.mpc_ok.double().mean().item(),
         "final_com_z_min": final_z.min().item(),
@@ -2890,7 +3386,24 @@ def main() -> int:
             row["launches_by_path"]["template_campaign_golden"] = \
                 camp["K3"][key]
     # ------------------------- 13. the team ------------------------------ #
-    team = team_phase(dev, smi)
+    # the float64 runs of phases 15 and 16 start in two side processes
+    # beside the team golden, which times nothing
+    est_w = types.SimpleNamespace(
+        model=model, ll_cfg=ll_cfg, motion_cfg=motion_cfg, sim_cfg=sim_cfg,
+        mpc=wb_mpc, relaxed=wb_relaxed, pr=wb_pr, prd=wb_prd, a0=wb_a0,
+        pobs=wb_pobs, dev=dev,
+        lanes=loop_lanes(dev, wb_pr, wb_prd, wb_a0, wb_pobs))
+    sides = []
+    try:
+        team = team_phase(dev, smi, lambda: sides.extend(
+            start_side(est_w, plain) for plain in (False, True)))
+        # ----------------- 15. est_loop and 16. event ------------------- #
+        est = estimation_phases(dev, smi, est_w, sides)
+    finally:
+        for proc, _ in sides:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
     kernel_keys = {"qp_fused_noeq": ("K1a",), "qp_general": ("K1b",),
                    "spd_solve": ("K2a",), "spd_inverse": ("K2b",),
                    "pallas_cholesky": ("K3a",), "pallas_cho_solve": ("K3b",)}
@@ -2898,6 +3411,8 @@ def main() -> int:
         (key,) = kernel_keys[row["name"]]
         for path in ("team", "team_golden"):
             row["launches_by_path"][path] = team[path][key]
+        for path in ("est_loop", "event"):
+            row["launches_by_path"][path] = est[path][key]
         if key == "K1b":
             row["by_case"].update(team["k1b_cases"])
             row["max_abs_err"] = max(row["max_abs_err"], team["k1b_f64_dx"])

@@ -13,9 +13,15 @@ imports `torch`, never `jax`, and nothing of `srbx`.
                              the generic (condensed or full-QP) cycle
   srbx_torch.motion, .agent  gait planning and the 1 kHz control tick
   srbx_torch.lowlevel        virtual constraints and the LL QP
-  srbx_torch.estimation      the contact debouncer
-  srbx_torch.sim             batched physics and the closed loops
-                             (run_batch, the team's run_team_batch)
+  srbx_torch.estimation      the contact debouncer and estimators; the
+                             KF, kinematic odometry and the pipeline that
+                             closes them into the loops
+  srbx_torch.sim             batched physics, the sensor model and the
+                             closed loops (run_batch, the team's
+                             run_team_batch, the event-driven
+                             run_batch_event), with or without estimation
+  srbx_torch.utils           transforms; prng, the JAX package's random
+                             streams (threefry2x32)
   srbx_torch.ops             CUDA kernels K1a, K1b, K2a, K2b, K3a, K3b with
                              their plain PyTorch versions; the batched IPM
                              (qp_batch) and Ruiz equilibration (qp);

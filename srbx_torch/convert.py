@@ -6,10 +6,14 @@ whole-body loop's plant, agent, contact-estimator and planner states
 (`SimState`, `AgentState`, `ConState`, `PlannerState`), its low-level
 build's context (`LLCtx`, and `LLCtxR` of the reduced build) and its
 result (`LoopResult`), a campaign's result (`CampaignResult`), obstacle fields,
-footholds and QP operands. `from_numpy`
-turns any tree of arrays (numpy, or anything `np.asarray` accepts, such as
-the JAX package's arrays) into tensors, and the JAX package's NamedTuples
-into the port's of the same name and fields; `to_numpy` is the way back.
+footholds and QP operands; with estimation in the loop the estimator
+state (`EstState`: the sensor model's key and biases, the KF's x and P, the
+odometry's state, ...). `from_numpy` turns any tree of arrays (numpy, or
+anything `np.asarray` accepts, such as the JAX package's arrays) into
+tensors, and the JAX package's NamedTuples into the port's of the same name
+and fields; a uint32 array, as the JAX package's raw PRNG keys are, becomes
+the port's key layout (`srbx_torch.utils.prng`: int64 words). `to_numpy`
+is the way back (a key stays int64).
 """
 
 from __future__ import annotations
@@ -18,17 +22,21 @@ import numpy as np
 import torch
 
 from srbx_torch import agent, lowlevel, motion, mpc, ocp, refplan
-from srbx_torch.estimation import contact
+from srbx_torch.estimation import contact, kalman, kinest, pipeline
 from srbx_torch.eval import campaign
 from srbx_torch.ops import qp_batch
-from srbx_torch.sim import closedloop, wholebody
+from srbx_torch.sim import closedloop, sensors, wholebody
+from srbx_torch.utils import prng
 
 _PORT_TYPES = {
     cls.__name__: cls
     for cls in (mpc.MpcCarry, mpc.MpcOutput, refplan.RefTraj, ocp.OcpData,
                 wholebody.SimState, agent.AgentState,
                 agent.TickCtx, contact.ConState, motion.PlannerState,
-                closedloop.LoopResult, lowlevel.VcOut, lowlevel.TrajIn,
+                closedloop.LoopResult, closedloop.EventBatchResult,
+                pipeline.EstState, pipeline.EstOut, kalman.KfState,
+                kinest.KinEstState, sensors.SensorState, sensors.Reading,
+                lowlevel.VcOut, lowlevel.TrajIn,
                 lowlevel.LLOut, lowlevel.LLQpData, lowlevel.LLCtx,
                 lowlevel.LLCtxR,
                 qp_batch.BatchSolution, campaign.CampaignResult)
@@ -54,6 +62,8 @@ def from_numpy(tree, device=None, dtype=torch.float64):
     if isinstance(tree, dict):
         return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
     arr = np.asarray(tree)
+    if arr.dtype == np.uint32:
+        return prng.as_key(arr, device)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if t.is_floating_point():
         t = t.to(dtype)

@@ -1,7 +1,8 @@
 """Full-fidelity closed loops, batched over lanes: stand-up, then trot
-domains under the event-cadence NMPC.
+domains under the event-cadence NMPC, or event-driven trot ticks.
 
-Counterpart of `srbx/sim/closedloop.py::run_batch` and `run_team_batch`.
+Counterpart of `srbx/sim/closedloop.py::run_batch`, `run_team_batch` and
+`run_batch_event`.
 Every 1 ms tick of every lane builds the low-level QP (`agent.tick_build`:
 the full build, n 43 / me 30, or with `ll_reduced` the reduced one, n 25 /
 me 12), solves all lanes' QPs in one call of `qp_batch.solve`, finishes the
@@ -23,6 +24,11 @@ form, as in the JAX package:
   (`torch.linalg.inv_ex`), the physics by `wholebody.step_batch(backend=
   "xla")`, the step-fused IPM on torch.linalg.
 
+With `est_cfg` every loop runs estimation in the loop
+(`srbx_torch.estimation.pipeline`): the controller sees the sensor model's
+readings through kinematic odometry or the KF, never the truth, and the
+physics evaluates its own mass matrix (the controller's is at q_hat).
+
 Matrix products run in full float32 (no TF32), as the JAX package asks with
 `default_matmul_precision("highest")` around the tick.
 """
@@ -40,10 +46,12 @@ from srbx_torch import mpc as mpc_mod
 from srbx_torch import mpc_batch
 from srbx_torch.config import (Gait, LowLevelConfig, MotionConfig, MpcConfig,
                                QpConfig)
+from srbx_torch.estimation import pipeline
 from srbx_torch.lowlevel import swing_delta_inv
 from srbx_torch.models import a1, rbd
 from srbx_torch.ops import qp_batch, spd
 from srbx_torch.sim import wholebody as wb
+from srbx_torch.utils import prng
 
 BACKENDS = ("fused", "pallas", "xla")
 
@@ -134,75 +142,145 @@ def _init_lanes(motion_cfg, loop, model, a0_l, dtype, stiction=False):
     return sim, ast, mpc_mod.init_carry(a0_l, dtype)
 
 
-def _ctrl_inputs(sim_cfg, model, sims):
-    """The controller's view of the state for one tick: ground truth (the
-    estimation pipeline is not ported) and the measured foot forces."""
-    return sims.q, sims.qd, wb.foot_force_measurement(sim_cfg, model, sims)
+def _init_ests(est_cfg, model, sims, est_key):
+    """The lanes' estimators: one key per lane from split(est_key, B), as
+    the JAX package draws them; est_key None means key(0). est_key is the
+    port's key tensor (2,) or the JAX package's raw key (a uint32 array)."""
+    dev = sims.q.device
+    est_key = prng.key(0, dev) if est_key is None else prng.as_key(est_key,
+                                                                    dev)
+    keys = prng.split(est_key, sims.q.shape[0])
+    return pipeline.init(est_cfg, model, sims, keys)
+
+
+def _ctrl_inputs(est_cfg, sim_cfg, model, ests, sims, asts, dom_ticks):
+    """The controller's view of the state for one tick: (ests, q, qd,
+    foot forces). Ground truth and the plant's foot forces without est_cfg;
+    with it the estimation pipeline's (q_hat, qd_hat) and measured forces,
+    truth confined to the plant and the sensors. dom_ticks divides the
+    lanes' tick counts into the gait phase that the pipeline's contact
+    filter reads."""
+    if est_cfg is None:
+        return (ests, sims.q, sims.qd,
+                wb.foot_force_measurement(sim_cfg, model, sims))
+    ests, out = pipeline.update(est_cfg, sim_cfg, model, ests, sims,
+                                asts.loco_tick / dom_ticks)
+    return ests, out.q_hat, out.qd_hat, out.foot_force
+
+
+def _errsq(qs, qds, sims):
+    """(B, 2) squared errors of the base position and velocity estimates."""
+    return torch.stack([((qs[:, 0:3] - sims.q[:, 0:3]) ** 2).sum(-1),
+                        ((qds[:, 0:3] - sims.qd[:, 0:3]) ** 2).sum(-1)], -1)
 
 
 def _sim_backend(backend):
     return "xla" if backend == "xla" else "fused"
 
 
+def _physics(sim_cfg, model, sims, tau, backend, d_b, est_cfg):
+    """The plant's tick. Without estimation the controller's D (at the true
+    q) is the first substep's; with it the controller's D was evaluated at
+    q_hat, so the plant evaluates its own."""
+    return wb.step_batch(sim_cfg, model, sims, tau,
+                         backend=_sim_backend(backend),
+                         d0=d_b if est_cfg is None else None)
+
+
 def _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims,
-                 asts, backend, ll_reduced):
-    """The batched stand-up ticks."""
+                 asts, backend, ll_reduced, est_cfg=None, ests=None):
+    """The batched stand-up ticks; with estimation in the loop the
+    estimators run (and settle) during the stand-up."""
     for _ in range(loop.stand_ticks):
-        qs, qds, forces = _ctrl_inputs(sim_cfg, model, sims)
+        ests, qs, qds, forces = _ctrl_inputs(
+            est_cfg, sim_cfg, model, ests, sims, asts,
+            torch.clamp(asts.planner.dom_ticks, min=1.0))
         ll_outs, asts, _, d_b = _tick_batch(
             ll_cfg, motion_cfg, ll_qp_cfg, model, Gait.STAND, asts, qs, qds,
             forces, backend, reduced=ll_reduced, return_d=True)
-        sims = wb.step_batch(sim_cfg, model, sims, ll_outs.tau,
-                             backend=_sim_backend(backend), d0=d_b)
-    return sims, asts
+        if est_cfg is not None:
+            ests = pipeline.set_contact_ind(ests, asts.con.ind)
+        sims = _physics(sim_cfg, model, sims, ll_outs.tau, backend, d_b,
+                        est_cfg)
+    return sims, asts, ests
+
+
+class DomainOut(NamedTuple):
+    """One trot domain's per-tick records (B, ticks, ...) and, with
+    estimation, its mean squared estimate errors (B, 2)."""
+
+    com: torch.Tensor
+    llok: torch.Tensor
+    taumax: torch.Tensor
+    errsq: Optional[torch.Tensor] = None
 
 
 def _trot_domain(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims,
-                 asts, backend, ll_reduced):
+                 asts, backend, ll_reduced, est_cfg=None, ests=None):
     """One trot domain's LL ticks after its NMPC. Returns (sims, asts,
-    com (B, ticks, 3), LL qp_converged (B, ticks), max |tau| (B, ticks))."""
-    com, llok, taumax = [], [], []
+    ests, DomainOut)."""
+    com, llok, taumax, errsq = [], [], [], []
+    trot_dom_ticks = float(motion_cfg.trot_dom_ticks)
     for k in range(loop.ticks_per_domain):
-        qs, qds, forces = _ctrl_inputs(sim_cfg, model, sims)
+        ests, qs, qds, forces = _ctrl_inputs(est_cfg, sim_cfg, model, ests,
+                                             sims, asts, trot_dom_ticks)
+        if est_cfg is not None:
+            errsq.append(_errsq(qs, qds, sims))
         ll_outs, asts, _, d_b = _tick_batch(
             ll_cfg, motion_cfg, ll_qp_cfg, model, Gait.TROT, asts, qs, qds,
             forces, backend, force_new_domain=(k == 0),
             allow_contact_trigger=False, reduced=ll_reduced, return_d=True)
+        if est_cfg is not None:
+            ests = pipeline.set_contact_ind(ests, asts.con.ind)
         asts = asts._replace(mpc_available=asts.mpc_available
                              | (k >= loop.mpc_latency_ticks))
-        sims = wb.step_batch(sim_cfg, model, sims, ll_outs.tau,
-                             backend=_sim_backend(backend), d0=d_b)
+        sims = _physics(sim_cfg, model, sims, ll_outs.tau, backend, d_b,
+                        est_cfg)
         com.append(sims.q[:, 0:3])
         llok.append(ll_outs.qp_converged)
         taumax.append(ll_outs.tau.abs().amax(-1))
-    return (sims, asts, torch.stack(com, 1), torch.stack(llok, 1),
-            torch.stack(taumax, 1))
+    return sims, asts, ests, DomainOut(
+        torch.stack(com, 1), torch.stack(llok, 1), torch.stack(taumax, 1),
+        torch.stack(errsq, 1).mean(1) if errsq else None)
 
 
-def _replan(mpc_cfg, qp_cfg, model, mcarries, sims, asts, pr, prd, a0, pobs,
-            backend, state_other=None, agent_circle_eps=0.0):
-    """The HL replan at a domain boundary, for the upcoming stance pair:
-    the NMPC output, with the agents' MPC data set from it."""
-    dtype = sims.q.dtype
-    toe_xy = rbd.site_positions(model, sims.q)[:, a1.TOE_SITES, 0:2]
-    contact_ind = motion_mod.next_trot_domain(asts.con.des).to(dtype)
-    out = mpc_batch.run_nmpc_batch(
-        mpc_cfg, qp_cfg, mcarries, sims.q[:, 0:2], sims.qd[:, 0:2],
-        toe_xy.transpose(1, 2), contact_ind, pr, prd, a0, pobs,
-        backend=backend, state_other=state_other,
-        agent_circle_eps=agent_circle_eps)
+def _state_view(est_cfg, sims, ests):
+    """The HL's (q, qd): the latest estimate with estimation in the loop,
+    else the truth."""
+    return (sims.q, sims.qd) if est_cfg is None else (ests.q_hat,
+                                                       ests.qd_hat)
+
+
+def _replan(mpc_cfg, qp_cfg, model, mcarries, qs, qds, asts, pr, prd, a0,
+            pobs, backend, state_other=None, agent_circle_eps=0.0):
+    """The HL replan at a domain boundary from the state view (qs, qds),
+    for the upcoming stance pair: the NMPC output, with the agents' MPC
+    data set from it."""
+    out = _nmpc(mpc_cfg, qp_cfg, model, mcarries, qs, qds,
+                motion_mod.next_trot_domain(asts.con.des).to(qs.dtype), pr,
+                prd, a0, pobs, backend, state_other, agent_circle_eps)
     return out, agent_mod.set_mpc_data(asts, out.alpha_com, out.states)
 
 
-def _check_options(mpc_cfg, backend, est_cfg, stiction=False, push=None):
+def _nmpc(mpc_cfg, qp_cfg, model, mcarries, qs, qds, contact_ind, pr, prd,
+          a0, pobs, backend, state_other=None, agent_circle_eps=0.0):
+    """One batched NMPC cycle from (qs, qds) for the stance pattern
+    contact_ind."""
+    toe_xy = rbd.site_positions(model, qs)[:, a1.TOE_SITES, 0:2]
+    return mpc_batch.run_nmpc_batch(
+        mpc_cfg, qp_cfg, mcarries, qs[:, 0:2], qds[:, 0:2],
+        toe_xy.transpose(1, 2), contact_ind, pr, prd, a0, pobs,
+        backend=backend, state_other=state_other,
+        agent_circle_eps=agent_circle_eps)
+
+
+def _check_options(mpc_cfg, backend, stiction=False, push=None):
     """Raise on what the port does not run."""
-    unported = {"est_cfg": est_cfg is not None, "stiction": stiction,
-                "push": push is not None}
+    unported = {"stiction": stiction, "push": push is not None}
     if any(unported.values()):
         raise NotImplementedError(
-            "srbx_torch's batched loops run without estimation in the loop, "
-            "stiction and pushes; not "
-            f"{[k for k, v in unported.items() if v]} (ROADMAP M7, M8)")
+            "srbx_torch's batched loops run without stiction and pushes; not "
+            f"{[k for k, v in unported.items() if v]} (ROADMAP M7 e)")
     if backend == "lanes":
         raise NotImplementedError(
             "the pure-JAX 'lanes' backend is left out of srbx_torch "
@@ -211,6 +289,13 @@ def _check_options(mpc_cfg, backend, est_cfg, stiction=False, push=None):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "fused":
         mpc_batch.check_fused(mpc_cfg, mpc_cfg.condensed)
+
+
+def _on_device(device, dtype, *arrays):
+    """device None means the CUDA card; the arrays moved there in dtype."""
+    device = torch.device("cuda" if device is None else device)
+    return device, [torch.as_tensor(t).to(device=device, dtype=dtype)
+                    for t in arrays]
 
 
 def run_batch(
@@ -245,48 +330,55 @@ def run_batch(
     configuration `_resolve_ll_qp_cfg` picks), any MpcConfig on "pallas"
     and "xla", and on "fused" any MpcConfig whose NMPC QPs the fused
     kernels are built for (`mpc_batch.check_fused`: every MpcConfig at the
-    default horizon and ndomain). est_cfg, stiction and push raise
-    NotImplementedError.
+    default horizon and ndomain).
+
+    est_cfg (a `srbx_torch.estimation.pipeline.EstConfig`): estimation in
+    the loop. The LL ticks and the replans consume the sensor-driven
+    estimates, ground truth stays in the plant and the sensor model, and
+    the result carries `est_rmse` (B, 2): the RMSE of the base position
+    (m) and velocity (m/s) estimates over the trot ticks. est_key: the
+    noise key (`srbx_torch.utils.prng.key`, or the JAX package's raw key);
+    None means key 0. stiction and push raise NotImplementedError.
     """
-    _check_options(mpc_cfg, backend, est_cfg, stiction, push)
-    device = torch.device("cuda" if device is None else device)
-
-    def on_dev(t):
-        return torch.as_tensor(t).to(device=device, dtype=dtype)
-
-    pr_agent, prd_agent, agent_initial, pobs_real = map(
-        on_dev, (pr_agent, prd_agent, agent_initial, pobs_real))
+    _check_options(mpc_cfg, backend, stiction, push)
+    device, (pr_agent, prd_agent, agent_initial, pobs_real) = _on_device(
+        device, dtype, pr_agent, prd_agent, agent_initial, pobs_real)
     ll_qp_cfg = _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype)
     with qp_batch.full_f32_products():
         return _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg,
                     loop, model, pr_agent, prd_agent, agent_initial,
-                    pobs_real, dtype, backend, ll_reduced)
+                    pobs_real, dtype, backend, ll_reduced, est_cfg, est_key)
 
 
 def _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop, model,
          pr_agent, prd_agent, agent_initial, pobs_real, dtype, backend,
-         ll_reduced):
+         ll_reduced, est_cfg, est_key):
     """run_batch's stand phase and trot domains, on checked inputs."""
     sims, asts, mcarries = _init_lanes(motion_cfg, loop, model, agent_initial,
                                        dtype)
-    sims, asts = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop,
-                              model, sims, asts, backend, ll_reduced)
+    ests = (_init_ests(est_cfg, model, sims, est_key)
+            if est_cfg is not None else None)
+    sims, asts, ests = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg,
+                                    loop, model, sims, asts, backend,
+                                    ll_reduced, est_cfg, ests)
 
     ok_cnt = torch.zeros(agent_initial.shape[0], dtype=torch.int32,
                          device=agent_initial.device)
-    com_hist, stats = [], []
+    com_hist, stats, errsq = [], [], []
     for _ in range(loop.n_domains):
-        out, asts = _replan(mpc_cfg, qp_cfg, model, mcarries, sims, asts,
+        qs, qds = _state_view(est_cfg, sims, ests)
+        out, asts = _replan(mpc_cfg, qp_cfg, model, mcarries, qs, qds, asts,
                             pr_agent, prd_agent, agent_initial, pobs_real,
                             backend)
-        sims, asts, com, llok, taumax = _trot_domain(
+        sims, asts, ests, dom = _trot_domain(
             ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims, asts,
-            backend, ll_reduced)
+            backend, ll_reduced, est_cfg, ests)
         mcarries = out.carry
         ok_cnt = ok_cnt + out.qp_converged.to(torch.int32)
-        com_hist.append(com)
-        stats.append(torch.stack([taumax.amax(1), llok.to(dtype).mean(1)],
-                                 -1))
+        com_hist.append(dom.com)
+        stats.append(torch.stack([dom.taumax.amax(1),
+                                  dom.llok.to(dtype).mean(1)], -1))
+        errsq.append(dom.errsq)
     stats = torch.stack(stats, 1)                  # (B, n_domains, 2)
     return LoopResult(
         sim=sims,
@@ -295,6 +387,8 @@ def _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop, model,
         qp_ok=stats[:, :, 1].mean(1),
         mpc_ok=ok_cnt.to(dtype) / loop.n_domains,
         tau_hist=stats,
+        est_rmse=(torch.sqrt(torch.stack(errsq, 1).mean(1))
+                  if est_cfg is not None else None),
     )
 
 
@@ -327,22 +421,20 @@ def run_team_batch(
     its own scenario (a roll by -1 on the agent axis) as a CBF circle with
     agent_circle_eps = mpc_cfg.cbf_eps; every LL QP and every NMPC of all
     scenarios and agents is one batched solve. Backends, builds and
-    solver configurations as in `run_batch`; est_cfg raises
-    NotImplementedError (ROADMAP M8).
+    solver configurations as in `run_batch`.
+
+    est_cfg: estimation in the loop per robot, as in `run_batch` (one key
+    per lane from split(est_key, S * A)); the replans and the neighbour
+    4-state each agent broadcasts are its estimate, never the truth.
 
     Returns (sims, com_ends (D, S, A, 3), margins (D, S, A), llok (D, S)):
     the lanes' final sim state, each domain's last COM, each agent's CBF
     margin of each domain's NMPC, and each scenario's share of converged LL
-    QPs in each domain.
+    QPs in each domain; with est_cfg a 5th element, est_rmse (S, A, 2).
     """
-    _check_options(mpc_cfg, backend, est_cfg)
-    device = torch.device("cuda" if device is None else device)
-
-    def on_dev(t):
-        return torch.as_tensor(t).to(device=device, dtype=dtype)
-
-    pr, prd, agent_initials, pobs_real = map(
-        on_dev, (pr, prd, agent_initials, pobs_real))
+    _check_options(mpc_cfg, backend)
+    device, (pr, prd, agent_initials, pobs_real) = _on_device(
+        device, dtype, pr, prd, agent_initials, pobs_real)
     n_scen, n_agents = agent_initials.shape[0:2]
     n_lanes = n_scen * n_agents
     a0_l = agent_initials.reshape(n_lanes, 2)
@@ -354,26 +446,180 @@ def run_team_batch(
     with qp_batch.full_f32_products():
         sims, asts, mcarries = _init_lanes(motion_cfg, loop, model, a0_l,
                                            dtype)
-        sims, asts = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg,
-                                  loop, model, sims, asts, backend,
-                                  ll_reduced)
-        com_ends, margins, lloks = [], [], []
+        ests = (_init_ests(est_cfg, model, sims, est_key)
+                if est_cfg is not None else None)
+        sims, asts, ests = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg,
+                                        sim_cfg, loop, model, sims, asts,
+                                        backend, ll_reduced, est_cfg, ests)
+        com_ends, margins, lloks, errsq = [], [], [], []
         for _ in range(loop.n_domains):
             # the neighbour broadcast: each agent sees the next one's state
-            states4 = torch.cat([sims.q[:, 0:2], sims.qd[:, 0:2]], 1)
+            qs, qds = _state_view(est_cfg, sims, ests)
+            states4 = torch.cat([qs[:, 0:2], qds[:, 0:2]], 1)
             others = torch.roll(states4.reshape(n_scen, n_agents, 4), -1,
                                 1).reshape(n_lanes, 4)
-            out, asts = _replan(mpc_cfg, qp_cfg, model, mcarries, sims, asts,
-                                pr_l, prd_l, a0_l, pobs_l, backend,
+            out, asts = _replan(mpc_cfg, qp_cfg, model, mcarries, qs, qds,
+                                asts, pr_l, prd_l, a0_l, pobs_l, backend,
                                 state_other=others,
                                 agent_circle_eps=mpc_cfg.cbf_eps)
-            sims, asts, _, llok, _ = _trot_domain(
+            sims, asts, ests, dom = _trot_domain(
                 ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims,
-                asts, backend, ll_reduced)
+                asts, backend, ll_reduced, est_cfg, ests)
             mcarries = out.carry
             com_ends.append(sims.q[:, 0:3].reshape(n_scen, n_agents, 3))
             margins.append(out.cbf_margin.reshape(n_scen, n_agents))
-            lloks.append(llok.to(dtype).mean(1).reshape(n_scen, n_agents)
+            lloks.append(dom.llok.to(dtype).mean(1).reshape(n_scen, n_agents)
                          .mean(1))
-    return (sims, torch.stack(com_ends), torch.stack(margins),
-            torch.stack(lloks))
+            errsq.append(dom.errsq)
+    res = (sims, torch.stack(com_ends), torch.stack(margins),
+           torch.stack(lloks))
+    if est_cfg is None:
+        return res
+    est_rmse = torch.sqrt(torch.stack(errsq, 1).mean(1))
+    return res + (est_rmse.reshape(n_scen, n_agents, 2),)
+
+
+class EventBatchResult(NamedTuple):
+    """run_batch_event's result; every field has a leading lane axis B."""
+
+    sim: wb.SimState
+    agent: agent_mod.AgentState
+    com_hist: torch.Tensor      # (B, n_ticks, 3)
+    qp_ok: torch.Tensor         # (B,) share of converged LL QPs
+    domains: torch.Tensor       # (B,) int32 gait domains completed
+    mpc_solves: torch.Tensor    # (B,) int32 NMPC replans applied
+    trigger_hist: torch.Tensor  # (B, n_ticks) bool, replan requested
+    est_rmse: Optional[torch.Tensor] = None   # estimation in the loop only
+
+
+def run_batch_event(
+    mpc_cfg: MpcConfig,
+    ll_cfg: LowLevelConfig,
+    motion_cfg: MotionConfig,
+    qp_cfg: QpConfig,
+    sim_cfg: wb.SimConfig,
+    loop: LoopConfig,
+    model: rbd.Model,
+    pr_agent,        # (B, 2, T)
+    prd_agent,       # (B, 2, T)
+    agent_initial,   # (B, 2)
+    pobs_real,       # (B, 2, n_obs)
+    n_ticks: int,
+    dtype=torch.float64,
+    backend: str = "fused",
+    tile: int = 256,
+    ll_reduced: bool = False,
+    ll_qp_cfg: QpConfig | None = None,
+    mpc_period_ticks: int = 1,
+    est_cfg=None,
+    est_key=None,
+    device=None,
+) -> EventBatchResult:
+    """Batched event-driven loop: the JAX package's `run_batch_event`, plus
+    `device` (None means the CUDA card); `tile` is not read. After the
+    stand-up, n_ticks trot ticks with per-lane domain triggers (a lane's
+    contact trigger or phase overrun, as `agent.tick_build` computes it)
+    instead of run_batch's fixed cadence:
+
+    * every tick, a lane's trigger (`run_mpc`) latches its replan request;
+    * every `mpc_period_ticks` ticks (the HL thread's cadence), if any lane
+      has a request, one batched NMPC runs for all lanes from the state
+      view and is applied only to the requesting lanes: their MPC carry,
+      their pending solution, a countdown of `loop.mpc_latency_ticks` and
+      their solve count; the requests clear. This is the JAX package's
+      `lax.cond`, decided by one host read of the requests on poll ticks;
+    * a lane whose countdown reaches 0 gets its pending solution; until
+      then its LL runs on the stale-Bezier fallback. The countdown is -1
+      when idle.
+
+    est_cfg: the contact debouncer, and with it every trigger, runs on the
+    measured foot force, and the LL and the NMPC on the estimates, as in
+    `run_batch`; the result carries est_rmse over the n_ticks trot ticks.
+    Backends, builds and solver configurations as in `run_batch`.
+    """
+    _check_options(mpc_cfg, backend)
+    device, (pr_agent, prd_agent, agent_initial, pobs_real) = _on_device(
+        device, dtype, pr_agent, prd_agent, agent_initial, pobs_real)
+    ll_qp_cfg = _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype)
+    with qp_batch.full_f32_products():
+        return _run_event(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg,
+                          sim_cfg, loop, model, pr_agent, prd_agent,
+                          agent_initial, pobs_real, n_ticks, dtype, backend,
+                          ll_reduced, mpc_period_ticks, est_cfg, est_key)
+
+
+def _where_lanes(mask, new, old):
+    return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def _run_event(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop,
+               model, pr_agent, prd_agent, agent_initial, pobs_real, n_ticks,
+               dtype, backend, ll_reduced, mpc_period_ticks, est_cfg,
+               est_key):
+    """run_batch_event's stand phase and event-driven ticks."""
+    bsz, dev = agent_initial.shape[0], agent_initial.device
+    sims, asts, mcarries = _init_lanes(motion_cfg, loop, model, agent_initial,
+                                       dtype)
+    ests = (_init_ests(est_cfg, model, sims, est_key)
+            if est_cfg is not None else None)
+    sims, asts, ests = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg,
+                                    loop, model, sims, asts, backend,
+                                    ll_reduced, est_cfg, ests)
+
+    trot_dom_ticks = float(motion_cfg.trot_dom_ticks)
+    pend_alpha = torch.zeros((bsz, 4, 5), dtype=dtype, device=dev)
+    pend_states = torch.zeros((bsz, 4, 4), dtype=dtype, device=dev)
+    countdown = torch.full((bsz,), -1, dtype=torch.int32, device=dev)
+    n_solves = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    req = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    com, llok, trig, errsq = [], [], [], []
+    for k in range(n_ticks):
+        ests, qs, qds, forces = _ctrl_inputs(est_cfg, sim_cfg, model, ests,
+                                             sims, asts, trot_dom_ticks)
+        if est_cfg is not None:
+            errsq.append(_errsq(qs, qds, sims))
+        ll_outs, asts, run_mpc, d_b = _tick_batch(
+            ll_cfg, motion_cfg, ll_qp_cfg, model, Gait.TROT, asts, qs, qds,
+            forces, backend, force_new_domain=(k == 0),
+            allow_contact_trigger=True, reduced=ll_reduced, return_d=True)
+        if est_cfg is not None:
+            ests = pipeline.set_contact_ind(ests, asts.con.ind)
+        req = req | run_mpc
+
+        if k % mpc_period_ticks == 0 and bool(req.any()):
+            # the triggering tick already moved con.des to the new domain
+            out = _nmpc(mpc_cfg, qp_cfg, model, mcarries, qs, qds,
+                        asts.con.des.to(dtype), pr_agent, prd_agent,
+                        agent_initial, pobs_real, backend)
+            mcarries = type(mcarries)(*(_where_lanes(req, n, o) for n, o in
+                                        zip(out.carry, mcarries)))
+            pend_alpha = _where_lanes(req, out.alpha_com, pend_alpha)
+            pend_states = _where_lanes(req, out.states, pend_states)
+            countdown = torch.where(req, loop.mpc_latency_ticks, countdown)
+            n_solves = n_solves + req.to(torch.int32)
+            req = torch.zeros_like(req)
+
+        # delivery: a lane whose countdown reaches 0 gets its solution
+        deliver = countdown == 0
+        asts = asts._replace(
+            mpc_alpha=_where_lanes(deliver, pend_alpha, asts.mpc_alpha),
+            mpc_states=_where_lanes(deliver, pend_states, asts.mpc_states),
+            mpc_available=asts.mpc_available | deliver)
+        countdown = torch.where(countdown >= 0, countdown - 1, countdown)
+
+        sims = _physics(sim_cfg, model, sims, ll_outs.tau, backend, d_b,
+                        est_cfg)
+        com.append(sims.q[:, 0:3])
+        llok.append(ll_outs.qp_converged)
+        trig.append(run_mpc)
+    return EventBatchResult(
+        sim=sims,
+        agent=asts,
+        com_hist=torch.stack(com, 1),
+        qp_ok=torch.stack(llok, 1).to(dtype).mean(1),
+        domains=asts.gait_domain,
+        mpc_solves=n_solves,
+        trigger_hist=torch.stack(trig, 1),
+        est_rmse=(torch.sqrt(torch.stack(errsq, 1).mean(1))
+                  if est_cfg is not None else None),
+    )

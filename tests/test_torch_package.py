@@ -23,19 +23,22 @@ from srbx import mpc_batch as jmpc_batch
 from srbx import refplan as jrefplan
 from srbx.config import MpcConfig, QpConfig
 from srbx.estimation import contact as jcontact
+from srbx.estimation import pipeline as jpipeline
 from srbx.eval import campaign as jcampaign
 from srbx.ops import qp_batch as jqp_batch
 from srbx.ops import qp_fused as jqp_fused
 from srbx.ops import spd as jspd
 from srbx.sim import closedloop as jclosedloop
+from srbx.sim import sensors as jsensors
 from srbx.sim import wholebody as jwb
 from srbx_torch import agent, config, convert, motion, mpc, mpc_batch, refplan
-from srbx_torch.estimation import contact
+from srbx_torch.estimation import contact, pipeline
 from srbx_torch.eval import campaign
 from srbx_torch.models import a1
 from srbx_torch.ocp import default_footholds
 from srbx_torch.ops import _build, qp_batch, qp_fused, spd
-from srbx_torch.sim import closedloop, wholebody as wb
+from srbx_torch.sim import closedloop, sensors, wholebody as wb
+from srbx_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -54,7 +57,9 @@ def test_import_pulls_in_no_jax():
             "srbx_torch.eval", "srbx_torch.eval.campaign",
             "srbx_torch.eval.analysis",
             "srbx_torch.eval.run_campaign_ab",
-            "srbx_torch.eval.run_team"} <= set(MODULES)
+            "srbx_torch.eval.run_team", "srbx_torch.estimation.pipeline",
+            "srbx_torch.estimation.kalman", "srbx_torch.estimation.kinest",
+            "srbx_torch.sim.sensors", "srbx_torch.utils.prng"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -113,9 +118,12 @@ def _default(value):
     (campaign._run_campaign_batch_core, jcampaign._run_campaign_batch_core),
     (closedloop.run_team_batch, jclosedloop.run_team_batch),
     (wb.step_batch, jwb.step_batch),
+    (closedloop.run_batch_event, jclosedloop.run_batch_event),
+    (pipeline.update, jpipeline.update), (sensors.read, jsensors.read),
 ], ids=["run_nmpc_batch", "qp_batch_solve", "run_batch", "qp_fused_solve",
         "solve_lanes_last", "spd_solve", "spd_inverse", "run_campaign_batch",
-        "run_campaign_batch_core", "run_team_batch", "step_batch"])
+        "run_campaign_batch_core", "run_team_batch", "step_batch",
+        "run_batch_event", "pipeline_update", "sensors_read"])
 def test_entry_points_keep_the_jax_defaults(mine, theirs):
     """Every parameter that a port entry point shares with its JAX
     counterpart has the same default, so that a call ported from the JAX
@@ -176,7 +184,9 @@ def test_entry_points_default_to_the_card():
              lambda: closedloop.run_team_batch(
                  *_loop_args()[:7], np.zeros((1, 4, 2, 10)),
                  np.zeros((1, 4, 2, 10)), np.zeros((1, 4, 2)),
-                 np.full((1, 2, 20), 100.0))[1]]
+                 np.full((1, 2, 20), 100.0))[1],
+             lambda: closedloop.run_batch_event(*_loop_args(), 1).com_hist,
+             lambda: prng.key(0)]
     for call in calls:
         if torch.cuda.is_available():
             out = call()
@@ -365,7 +375,8 @@ def _loop_args(bsz=2):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backend="xla"), dict(ll_reduced=True), dict(est_cfg=object()),
+    dict(backend="xla"), dict(ll_reduced=True),
+    dict(est_cfg=pipeline.EstConfig()),
     dict(stiction=True), dict(push=(None, None, None)),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False)),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False, horizon=5)),
@@ -373,15 +384,16 @@ def _loop_args(bsz=2):
         "unbuilt_shape"])
 def test_run_batch_unported_options_raise(change):
     """The options of the JAX package's run_batch that the port does not run
-    raise NotImplementedError: estimation in the loop, stiction, pushes,
-    and on backend "fused" an NMPC whose QPs the fused kernels are not
-    built for (a horizon of 5 makes (n, me) = (47, 35)), before any tick.
-    Backend "xla", the reduced LL build and the uncondensed NMPC on "fused"
-    (K1b at n 41, me 28, built since) raised too until they were ported;
-    they now run the loop (one stand and one trot tick) to finite states."""
+    raise NotImplementedError: stiction, pushes, and on backend "fused" an
+    NMPC whose QPs the fused kernels are not built for (a horizon of 5 makes
+    (n, me) = (47, 35)), before any tick. Backend "xla", the reduced LL
+    build, the uncondensed NMPC on "fused" (K1b at n 41, me 28, built since)
+    and estimation in the loop raised too until they were ported; they now
+    run the loop (one stand and one trot tick) to finite states, with
+    estimation an est_rmse of each lane."""
     args = list(_loop_args())
     match = r"\(47, 35\)" if "mpc_cfg" in change else None
-    ported = (set(change) <= {"backend", "ll_reduced", "mpc_cfg"}
+    ported = (set(change) <= {"backend", "ll_reduced", "mpc_cfg", "est_cfg"}
               and change.get("mpc_cfg", MpcConfig()).horizon == 4)
     if "mpc_cfg" in change:
         args[0] = change.pop("mpc_cfg")
@@ -389,23 +401,28 @@ def test_run_batch_unported_options_raise(change):
         res = closedloop.run_batch(*args, device="cpu", **change)
         assert res.com_hist.shape == (2, 1, 1, 3)
         assert torch.isfinite(res.sim.q).all() and res.qp_ok.min() == 1.0
+        assert (res.est_rmse is None) == ("est_cfg" not in change)
+        if "est_cfg" in change:
+            assert res.est_rmse.shape == (2, 2)
+            assert torch.isfinite(res.est_rmse).all()
         return
     with pytest.raises(NotImplementedError, match=match):
         closedloop.run_batch(*args, device="cpu", **change)
 
 
 @pytest.mark.parametrize("change", [
-    dict(est_cfg=object()), dict(backend="lanes"),
+    dict(est_cfg=pipeline.EstConfig()), dict(backend="lanes"),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=True)),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=True, horizon=5)),
 ], ids=["est_cfg", "lanes", "condensed_not_elided", "unbuilt_shape"])
 def test_run_team_batch_unported_options_raise(change):
-    """run_team_batch raises on estimation in the loop (ROADMAP M8), on the
-    JAX package's pure-JAX "lanes" backend, and on backend "fused" for an
-    NMPC whose QPs the fused kernels are not built for (condensed with a
-    horizon of 5: (n, me) = (17, 5)). The condensed NMPC with its simplex
-    rows (K1b at (17, 4), built since) raised too; it now runs the team
-    (one stand and one trot tick, 4 agents) to finite states."""
+    """run_team_batch raises on the JAX package's pure-JAX "lanes" backend
+    and on backend "fused" for an NMPC whose QPs the fused kernels are not
+    built for (condensed with a horizon of 5: (n, me) = (17, 5)). The
+    condensed NMPC with its simplex rows (K1b at (17, 4), built since) and
+    estimation in the loop raised too; they now run the team (one stand and
+    one trot tick, 4 agents) to finite states, with estimation a 5th
+    element, est_rmse (1, 4, 2)."""
     args = list(_loop_args())[:7] + [np.zeros((1, 4, 2, 10)),
                                       np.zeros((1, 4, 2, 10)),
                                       np.zeros((1, 4, 2)),
@@ -413,14 +430,36 @@ def test_run_team_batch_unported_options_raise(change):
     match = r"\(17, 5\)" if "mpc_cfg" in change else None
     if "mpc_cfg" in change:
         args[0] = change.pop("mpc_cfg")
-    if args[0].horizon == 4 and args[0].condensed and not change:
-        sims, com_ends, margins, llok = closedloop.run_team_batch(
-            *args, device="cpu")
+    if args[0].horizon == 4 and args[0].condensed and set(change) <= {
+            "est_cfg"}:
+        out = closedloop.run_team_batch(*args, device="cpu", **change)
+        sims, com_ends, margins, llok = out[:4]
         assert com_ends.shape == (1, 1, 4, 3) and margins.shape == (1, 1, 4)
         assert torch.isfinite(sims.q).all() and llok.min() == 1.0
+        assert len(out) == (5 if change else 4)
+        if change:
+            assert out[4].shape == (1, 4, 2)
+            assert torch.isfinite(out[4]).all()
         return
     with pytest.raises(NotImplementedError, match=match):
         closedloop.run_team_batch(*args, device="cpu", **change)
+
+
+@pytest.mark.parametrize("change", [
+    dict(backend="lanes"), dict(backend="tpu"),
+    dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False, horizon=5)),
+], ids=["lanes", "unknown", "unbuilt_shape"])
+def test_run_batch_event_unported_options_raise(change):
+    """run_batch_event refuses what the other loops refuse, before any tick:
+    the pure-JAX "lanes" backend (NotImplementedError), an unknown backend
+    (ValueError), and on "fused" an NMPC shape no kernel is built for."""
+    args = list(_loop_args())
+    if "mpc_cfg" in change:
+        args[0] = change.pop("mpc_cfg")
+    error = ValueError if change.get("backend") == "tpu" else \
+        NotImplementedError
+    with pytest.raises(error):
+        closedloop.run_batch_event(*args, 1, device="cpu", **change)
 
 
 def test_whole_body_state_round_trip():
