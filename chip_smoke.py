@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Nine paths, each driven through the entry point a user calls:
+Ten paths, each driven through the entry point a user calls:
 
 * the batched CBF-NMPC control cycle (`srbx_torch.mpc_batch.run_nmpc_batch`
   on its lanes-last fused branch, kernel K1a) at the benchmark operating
@@ -22,7 +22,8 @@ Nine paths, each driven through the entry point a user calls:
   (`srbx_torch.eval.run_campaign_ab.main`: the batched APF planner, then
   120 gait domains of one lanes-last NMPC cycle for all lanes through K1a)
   at the runner's size: 1024 scenarios x 2 agents, 40,000 planner steps,
-  float32, QP-only and CBF-SQP, on the JAX package's key-0 fields;
+  float32, QP-only and CBF-SQP, on the JAX package's key-0 fields (drawn
+  by the runner through srbx_torch.utils.prng);
 * the scenario-batched 4-agent whole-body team
   (`srbx_torch.eval.run_team`, through `closedloop.run_team_batch`) at its
   production point: S 1024 scenarios x 4 agents = 4096 lanes, float32, the
@@ -43,14 +44,22 @@ Nine paths, each driven through the entry point a user calls:
   odometry, the noise drawn from the JAX package's keys) at
   `scripts/campaign_wholebody.py`'s batch-r est configuration: B = 4096,
   float32, the condensed lanes-last NMPC (K1a), the reduced LL QP (K1b at
-  n 25 / me 12), K2a and K2b; 300 stand ticks and 1 domain;
+  n 25 / me 12), K2a and K2b; 300 stand ticks and the first 100 ticks of
+  1 domain;
 * the event-driven loop with estimation (`closedloop.run_batch_event`:
   per-lane contact-triggered domains, an HL poll every 20 ticks, a 20-tick
   latency) at `scripts/campaign_event.py`'s est configuration, B = 4096,
-  float32, the same kernels; 300 stand ticks and 400 trot ticks.
+  float32, the same kernels; 300 stand ticks and 250 trot ticks;
+* the whole-body loop under trunk pushes with stick-slip contact and the
+  CLF row (`closedloop.run_batch(stiction=True, push=...)` with
+  `LowLevelConfig(use_clf=True)`) at `scripts/campaign_push.py`'s
+  configuration: B = 4096, float32, the QP-only condensed NMPC (K1a), the
+  reduced LL QP (K1b at n 25 / me 12), K2a and K2b; every lane pushed at
+  (0, 10, ..., 90)[lane % 10] N, the JAX script's key(7) azimuths, from
+  trot tick 10; 300 stand ticks and the first 100 ticks of 1 domain.
 
-Phases, each printing JSON lines (14 runs after 11, before 12; 15 and 16
-after 13):
+Phases, each printing JSON lines (14 runs after 11, before 12; 15, 16
+and 17 after 13):
 
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
 2. build     - compile every CUDA source in srbx_torch/csrc with nvcc (one
@@ -124,10 +133,11 @@ after 13):
                and K3b (backend "pallas", float64); (f) the CBF-SQP leg at
                S 4096 (domains_per_s);
 13. team     - (a) the team at its production point through the runner
-               (fields of torch seed 7, loop 20,000): finite, LL-QP ok >=
-               0.99, every LL QP at (25, 12), K1b one launch a tick, K1a two
-               a domain, K2a and K2b two a tick; robot-ticks/s, the
-               planner's and the loop's seconds, the minimum inter-agent
+               (the JAX script's key(7) fields, loop 20,000): finite,
+               LL-QP ok >= 0.99, every LL QP at (25, 12), K1b one launch a
+               tick, K1a two a domain, K2a and K2b two a tick;
+               robot-ticks/s, the planner's and the loop's seconds, the
+               minimum inter-agent
                distance and CBF margin; (b) a torch.profiler run of 5 trot
                ticks (the card's busy and idle shares, K1b's and K2's share)
                and the physics of 5 ticks alone; (c) K1b (25, 12) against
@@ -174,10 +184,24 @@ after 13):
                est RMSE; the first 64 lanes in float64 through the kernels
                and the plain versions (trigger ticks, domains and solves
                equal, q, COM and est RMSE within 1e-9).
+17. disturbance - run_batch with stiction, the CLF row and a push on every
+               lane at B = 4096 float32: on the lanes at or under 30 N
+               finite, standing, LL qp_ok >= 0.9; exact launch counts; LL
+               ticks/s, slip p50 and max, success against magnitude (the
+               push campaign's rule); a profile of 5 trot ticks (the card's
+               idle share); in a side process the first 64 lanes in
+               float64 through the kernels and the plain versions (10
+               stand, 10 trot ticks, pulses from trot tick 2: q, COM and
+               slip within 1e-9, equal qp_ok) and at the phase's depth
+               (slip against float32); in two others a CLF-on/CLF-off
+               pair without push or stiction, 64 lanes, in float64 at
+               scripts/campaign_clf.py's configuration (the COM distance
+               beside docs/CLF_LOOP.json's 1.47e-7 m) and in float32 at
+               the phase's (the LL qp_ok shares).
 
 Then a {"kernels": [...]} line (K1b (41, 28), K1b (17, 4) and K1a above
-64 rows on rows of their own; each row's launches by path include the two
-new phases') and, last, {"ok": true, "device": {...}}.
+64 rows on rows of their own; each row's launches by path include phases
+15-17's) and, last, {"ok": true, "device": {...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or outside the repository, it exits non-zero and prints no result.
 """
@@ -210,10 +234,15 @@ CAMPAIGN_LOOP = 40_000   # the A/B runner's APF rollout steps
 SCALING_SCENARIOS = 4096  # the campaign's scaling line
 TEAM_SCENARIOS = 1024    # the team phase: S x 4 agents = 4096 lanes
 TEAM_DEPTH = (300, 1, 100)  # its stand ticks, domains and ticks a domain
-EST_DEPTH = (300, 1, 172)   # estimation in the loop: stand, domains, ticks
-EVENT_DEPTH = (300, 400)    # the event-driven loop: stand and trot ticks
+EST_DEPTH = (300, 1, 100)   # estimation in the loop: stand, domains, ticks
+EVENT_DEPTH = (300, 250)    # the event-driven loop: stand and trot ticks
 EST_CROSS = (10, 1, 10)     # their float64 kernels-vs-plain runs, 64 lanes:
 EVENT_CROSS = (10, 165)     # a contact trigger near tick 160
+DIST_DEPTH = (300, 1, 100)  # the disturbance phase: stand, domains, ticks
+DIST_PUSH = (10, 300)       # its pulses' first trot tick and duration
+DIST_CROSS = (10, 1, 10)    # its float64 kernels-vs-plain run, 64 lanes,
+DIST_CROSS_PUSH = (2, 300)  # pulses from trot tick 2
+CLF_PAIR = (300, 1, 80)     # the CLF-on/CLF-off pair, 64 lanes
 NMPC_CHECK_LANES = 16384  # lanes of the NMPC's own QPs held to K1's plain
 K1_NEW_REPS = 3          # K1b launches per timing at B = 131072
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -720,11 +749,13 @@ def campaign_golden_check(dev, smi):
     from srbx_torch.config import MpcConfig, QpConfig
     from srbx_torch.eval import campaign, run_campaign_ab
     from srbx_torch.ops import pallas_linalg as plin, qp_batch, qp_fused
+    from srbx_torch.utils import prng
 
     with open(ROOT / "docs" / "golden" / "golden.json") as f:
         gold = json.load(f)["template_campaign"]
     f64 = torch.float64
-    pobs, pobs_real = run_campaign_ab.jax_fields("key1234", f64, dev)
+    pobs, pobs_real = campaign.sample_obstacles(
+        prng.split(prng.key(1234, dev))[0], 32, 20, 0.6, f64, dev)
     unconverged = torch.zeros(pobs.shape[0] * 2, dtype=torch.bool,
                               device=dev)
     real_solve = qp_batch.solve
@@ -787,6 +818,7 @@ def campaign_phase(dev, smi):
     from srbx_torch import mpc_batch, refplan
     from srbx_torch.eval import campaign, run_campaign_ab
     from srbx_torch.ops import qp_fused
+    from srbx_torch.utils import prng
 
     t_phase = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
@@ -794,7 +826,9 @@ def campaign_phase(dev, smi):
     with open(ROOT / "docs" / "CAMPAIGN_1024.json") as f:
         record = json.load(f)
     n_domains = record["n_domains"]
-    pobs, pobs_real = run_campaign_ab.jax_fields("key0", f32, dev)
+    pobs, pobs_real = campaign.sample_obstacles(
+        prng.split(prng.key(0, dev))[0], record["n_scenarios"], 20, 0.6, f32,
+        dev)
     n_scen = pobs.shape[0]
     p32 = torch.tensor(run_campaign_ab.P_START, dtype=f32, device=dev)
     ref_cfg = refplan.two_agent_config(loop_size=CAMPAIGN_LOOP)
@@ -1019,8 +1053,9 @@ def campaign_phase(dev, smi):
     # (e) the template_campaign golden through K3a and K3b
     k3_launches = campaign_golden_check(dev, smi)
 
-    # (f) one scaling line: the CBF-SQP leg at S 4096 (8192 lanes), fields
-    # drawn from seed 0
+    # (f) one scaling line: the CBF-SQP leg at S 4096 (8192 lanes) on the
+    # fields the JAX runner draws from key(0) at that size
+    # (docs/CAMPAIGN_4096.json's)
     qp_fused.solve_lanes_last.launches = 0
     summ4, _ = run_campaign_ab.main(
         SCALING_SCENARIOS, n_domains, seed=0, device=dev,
@@ -1125,8 +1160,9 @@ def team_phase(dev, smi, before_golden=None):
                 "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
 
     # (a) the team at its production point through the runner: S 1024 x 4
-    # agents, fields of torch seed 7, loop 20,000, float32, cut in depth to
-    # TEAM_DEPTH (300 stand ticks and the first 100 ticks of 1 domain). The
+    # agents, the JAX script's key(7) fields, loop 20,000, float32, cut in
+    # depth to TEAM_DEPTH (300 stand ticks and the first 100 ticks of 1
+    # domain). The
     # LL QPs of stand tick 150 and of the last domain's middle tick are kept
     # for (c), the state at the last domain's start for (b).
     pobs = run_team.sample_fields(TEAM_SCENARIOS, 7, f32, dev)
@@ -1162,7 +1198,8 @@ def team_phase(dev, smi, before_golden=None):
     expect = {"K1a": 2 * loop.n_domains, "K1b": ticks, "K2a": 2 * ticks,
               "K2b": 2 * ticks, "K3a": 0, "K3b": 0}
     rec = {"phase": "team", "what": "production point", **summ,
-           "fields": "run_team.sample_fields, torch seed 7",
+           "fields": ("run_team.sample_fields: jax key(7), as "
+                      "scripts/run_team_batch_scale.py draws them"),
            "loop_size": 20_000, "dtype": "float32", "backend": "fused",
            "ll_reduced": True, "ll_qp_shapes": sorted(shapes),
            "ll_qp_solves": len(ll_qps["calls"]),
@@ -1982,11 +2019,116 @@ def cross_record(res):
             if v is not None}
 
 
+def dist_push(dev, n, start, dur, dtype):
+    """The disturbance phase's pulses on n lanes: (0, 10, ..., 90)[lane %
+    10] N at scripts/campaign_push.py's key(7) azimuths (the first n of its
+    stream), from trot tick `start` for `dur` ticks."""
+    from srbx_torch.utils import prng
+
+    k_az = prng.split(prng.key(7, dev))[0]
+    mags = 10.0 * (torch.arange(n, device=dev) % 10).to(torch.float32)
+    az = prng.uniform(k_az, (n,), torch.float32, 0.0, 2 * np.pi)
+    force = torch.stack([mags * torch.cos(az), mags * torch.sin(az),
+                         torch.zeros_like(mags)], 1).to(dtype)
+    return (force,
+            torch.full((n,), start, dtype=torch.int32, device=dev),
+            torch.full((n,), dur, dtype=torch.int32, device=dev))
+
+
+def run_dist(w, dtype, n, loop, push=None, stiction=True, use_clf=True,
+             ll_qp_cfg=None):
+    """closedloop.run_batch at the disturbance phase's configuration
+    (scripts/campaign_push.py's QP-only condensed NMPC, the reduced LL
+    build, backend "fused") on the first n lanes of `w`, with stick-slip
+    contact, the CLF row and the pulses `push` as asked."""
+    from srbx_torch.config import LowLevelConfig, MpcConfig
+    from srbx_torch.sim import closedloop
+
+    mpc = MpcConfig(use_sqp=False, condensed=True, elide_box_rows=True,
+                    elide_simplex=True)
+    return closedloop.run_batch(
+        mpc, LowLevelConfig(use_clf=use_clf), w.motion_cfg, w.relaxed,
+        w.sim_cfg, loop, w.model, *w.lanes(dtype, n), dtype=dtype,
+        backend="fused", tile=128, ll_reduced=True, ll_qp_cfg=ll_qp_cfg,
+        stiction=stiction, push=push, device=w.dev)
+
+
+def dist_record(res):
+    """What the disturbance phase compares of a run, as numpy."""
+    out = cross_record(res)
+    out["slip"] = res.sim.con.slip.cpu().numpy()
+    return out
+
+
+def dist_crosses(w):
+    """The disturbance phase's float64 side runs on its first
+    WB_CROSS_LANES lanes: through the kernels and the plain versions over
+    DIST_CROSS (pulses from trot tick 2), and through the kernels at the
+    phase's depth; all with the float32 run's LL configuration (5 Ruiz
+    sweeps), so that against the float32 run only the dtype differs."""
+    from srbx_torch.sim import closedloop
+
+    f64, n = torch.float64, WB_CROSS_LANES
+    cross = closedloop.LoopConfig(*DIST_CROSS)
+    push = dist_push(w.dev, n, *DIST_CROSS_PUSH, f64)
+    out = {"ker." + k: v for k, v in dist_record(run_dist(
+        w, f64, n, cross, push, ll_qp_cfg=_cross_ll_cfg(w))).items()}
+    with plain_kernels():
+        out.update({"plain." + k: v for k, v in dist_record(run_dist(
+            w, f64, n, cross, push, ll_qp_cfg=_cross_ll_cfg(w))).items()})
+    deep = run_dist(w, f64, n, closedloop.LoopConfig(*DIST_DEPTH),
+                    dist_push(w.dev, n, *DIST_PUSH, f64),
+                    ll_qp_cfg=_cross_ll_cfg(w))
+    out.update({"deep." + k: v for k, v in dist_record(deep).items()})
+    return out
+
+
+def clf_pair32(w):
+    """The CLF-on/CLF-off pair in float32 at the disturbance phase's
+    configuration without push or stiction, on the first WB_CROSS_LANES
+    lanes over CLF_PAIR."""
+    from srbx_torch.sim import closedloop
+
+    out = {}
+    for use_clf in (True, False):
+        res = run_dist(w, torch.float32, WB_CROSS_LANES,
+                       closedloop.LoopConfig(*CLF_PAIR), stiction=False,
+                       use_clf=use_clf)
+        out.update({f"f32.{'on' if use_clf else 'off'}.{k}": v
+                    for k, v in cross_record(res).items()})
+    return out
+
+
+def clf_pair(w):
+    """The CLF-on/CLF-off pair without push or stiction on the first
+    WB_CROSS_LANES lanes over CLF_PAIR, in float64 at
+    scripts/campaign_clf.py's configuration: the uncondensed NMPC without
+    SCP, the full LL build, QpConfig() for both (K1b at (41, 28) and
+    (43, 30))."""
+    from srbx_torch.config import LowLevelConfig, MpcConfig, QpConfig
+    from srbx_torch.sim import closedloop
+
+    n, loop = WB_CROSS_LANES, closedloop.LoopConfig(*CLF_PAIR)
+    out = {}
+    for use_clf in (True, False):
+        res = closedloop.run_batch(
+            MpcConfig(use_sqp=False), LowLevelConfig(use_clf=use_clf),
+            w.motion_cfg, QpConfig(), w.sim_cfg, loop, w.model,
+            *w.lanes(torch.float64, n), dtype=torch.float64,
+            backend="fused", device=w.dev)
+        out.update({f"f64.{'on' if use_clf else 'off'}.{k}": v
+                    for k, v in cross_record(res).items()})
+    return out
+
+
+SIDE_JOBS = {"dist": dist_crosses, "clf32": clf_pair32, "clf": clf_pair}
+
+
 def _side_main(queue, payload):
     """A side process: the float64 runs of phases 15 and 16 through the
-    kernels or through the plain versions (payload["plain"]), sent back
-    through `queue` with the seconds they took, or the error that stopped
-    them."""
+    kernels or through the plain versions (payload["plain"]), or a job of
+    phase 17's (payload["job"]), sent back through `queue` with the seconds
+    they took, or the error that stopped them."""
     try:
         sys.path.insert(0, str(ROOT))
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1997,8 +2139,10 @@ def _side_main(queue, payload):
         from srbx_torch.ops import qp_batch
 
         t0 = time.perf_counter()
+        job = payload.get("job")
         with qp_batch.full_f32_products():
-            out = crosses(w, payload["plain"])
+            out = (SIDE_JOBS[job](w) if job else
+                   crosses(w, payload["plain"]))
         queue.put({"ok": True, "seconds": time.perf_counter() - t0, **out})
     except Exception:                          # noqa: BLE001 - reported
         import traceback
@@ -2006,11 +2150,12 @@ def _side_main(queue, payload):
         queue.put({"ok": False, "error": traceback.format_exc()})
 
 
-def start_side(w, plain):
+def start_side(w, plain, job=None):
     """Start a side process of the float64 runs through the kernels or the
     plain versions (slow: the plain IPM and SPD solves are eager PyTorch,
-    host-bound), so that they overlap untimed work of this process and of
-    each other; returns (process, queue). The kernels are built already."""
+    host-bound), or of a job of SIDE_JOBS, so that they overlap untimed
+    work of this process and of each other; returns (process, queue). The
+    kernels are built already."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -2019,6 +2164,7 @@ def start_side(w, plain):
     payload = {"cfgs": {k: getattr(w, k) for k in (
                    "model", "ll_cfg", "motion_cfg", "sim_cfg", "mpc",
                    "relaxed")}, "dev": str(w.dev), "plain": plain,
+               "job": job,
                "lanes": tuple(torch.as_tensor(t[:n]).cpu().numpy()
                               for t in (w.pr, w.prd, w.a0, w.pobs))}
     proc = ctx.Process(target=_side_main, args=(queue, payload),
@@ -2114,7 +2260,8 @@ def estimation_phases(dev, smi, w, sides):
                       "lanes-last CBF-SQP NMPC (sqp_iters 1, relaxed), "
                       "reduced LL build (5 Ruiz sweeps), backend fused, "
                       "EstConfig() (kinEst), est_key key(11)"),
-           "cut": ("300 stand ticks and 1 domain against the script's 800 "
+           "cut": ("300 stand ticks and the first 100 ticks of 1 domain "
+                   "against the script's 800 "
                    "and 40; one field (the whole-body phase's lanes, "
                    "obstacles 100 m away), not S fields"),
            "ticks_per_lane": ticks, "wall_s": wall,
@@ -2244,7 +2391,8 @@ def estimation_phases(dev, smi, w, sides):
                       "20, mpc_latency_ticks 20, condensed lanes-last "
                       "CBF-SQP NMPC (sqp_iters 1, relaxed), reduced LL "
                       "build, backend fused, EstConfig(), est_key key(11)"),
-           "cut": "300 stand ticks and 400 trot ticks against 800 and 1720",
+           "cut": ("300 stand ticks and 250 trot ticks "
+                   "against 800 and 1720"),
            "ticks_per_lane": ticks, "wall_s": wall,
            "ll_ticks_per_s": WB_BATCH * ticks / wall,
            "hl_polls": polls[0],
@@ -2324,6 +2472,184 @@ def estimation_phases(dev, smi, w, sides):
                              "plain": plain["seconds"]},
           "waited_for_the_side_processes_s": side_wait})
     return {"est_loop": launches, "event": ev_launches}
+
+
+def disturbance_phase(dev, smi, w, dist, clf):
+    """Phase 17 (disturbance): run_batch with stick-slip contact, the CLF
+    row and a push on every lane at B = WB_BATCH float32 on the whole-body
+    phase's lanes (`w`), and the side processes' results (`dist`:
+    dist_crosses'; `clf`: clf_pair32's and clf_pair's). Returns the
+    kernels' launches."""
+    from srbx_torch.ops import pallas_linalg as plin, qp_fused, spd
+    from srbx_torch.sim import closedloop
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    counters = {"K1a": qp_fused.solve_lanes_last, "K1b": qp_fused.solve,
+                "K2a": spd.solve, "K2b": spd.inverse,
+                "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
+    for out in (dist, clf):
+        check(out["ok"], f"the disturbance phase's side runs failed: {out}")
+    loop = closedloop.LoopConfig(*DIST_DEPTH)
+    ticks = loop.stand_ticks + loop.n_domains * loop.ticks_per_domain
+    run_dist(w, f32, WB_BATCH, closedloop.LoopConfig(2, 1, 2),
+             dist_push(dev, WB_BATCH, 0, 2, f32))              # warm-up
+    torch.cuda.synchronize()
+    real_domain = closedloop._trot_domain
+    domain_args = []
+
+    def capturing_domain(*a, **kw):
+        domain_args[:] = [a]
+        return real_domain(*a, **kw)
+
+    push = dist_push(dev, WB_BATCH, *DIST_PUSH, f32)
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(closedloop, "_trot_domain", capturing_domain):
+        res = run_dist(w, f32, WB_BATCH, loop, push)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    expect = {"K1a": loop.n_domains, "K1b": ticks, "K2a": 2 * ticks,
+              "K2b": 2 * ticks, "K3a": 0, "K3b": 0}
+
+    # the push campaign's success rule, per lane
+    q = res.sim.q.double()
+    finite = (torch.isfinite(q).all(1) & torch.isfinite(res.sim.qd).all(1)
+              & torch.isfinite(res.com_hist.reshape(WB_BATCH, -1)).all(1)
+              & torch.isfinite(res.sim.con.slip).all(1))
+    standing = ((q[:, 2] > 0.18) & (q[:, 2] < 0.40) & (q[:, 3].abs() < 0.5)
+                & (q[:, 4].abs() < 0.5))
+    llok_final = res.tau_hist[:, -1, 1].double() > 0.995
+    success = standing & finite & llok_final
+    mags = 10 * (torch.arange(WB_BATCH, device=dev) % 10)
+    low = mags <= 30
+    slip = res.sim.con.slip.double().amax(1)       # a lane's largest toe slip
+    qp_ok = res.qp_ok.double()
+    curve = {str(m): success[mags == m].double().mean().item()
+             for m in range(0, 100, 10)}
+    rec = {"phase": "disturbance", "lanes": WB_BATCH, "dtype": "float32",
+           "config": ("scripts/campaign_push.py: QP-only condensed NMPC "
+                      "(relaxed), reduced LL build (5 Ruiz sweeps), backend "
+                      "fused; stiction=True, LowLevelConfig(use_clf=True); "
+                      "every lane pushed at (0, 10, ..., 90)[lane % 10] N, "
+                      "key(7) azimuths, from trot tick 10 for 300 ticks"),
+           "cut": ("300 stand ticks and the first 100 ticks of 1 domain "
+                   "against the script's 800 and 10 domains; pulses from "
+                   "trot tick 10 (the script's onsets lie in trot ticks "
+                   "344-1203) over the run's last 90 ticks; the whole-body "
+                   "phase's lanes"),
+           "ticks_per_lane": ticks, "wall_s": wall,
+           "ll_ticks_per_s": WB_BATCH * ticks / wall,
+           "ms_per_tick": wall * 1e3 / ticks,
+           "le30N_lanes": int(low.sum()),
+           "le30N_finite": bool(finite[low].all()),
+           "le30N_standing_share": standing[low].double().mean().item(),
+           "le30N_ll_qp_ok": qp_ok[low].mean().item(),
+           "le30N_ll_qp_ok_min": qp_ok[low].min().item(),
+           "le30N_slip_m_p50": slip[low].median().item(),
+           "le30N_slip_m_max": slip[low].max().item(),
+           "slip_m_p50": slip.median().item(),
+           "slip_m_max": slip.max().item(),
+           "ll_qp_ok": qp_ok.mean().item(),
+           "mpc_ok": res.mpc_ok.double().mean().item(),
+           "finite_lanes": int(finite.sum()),
+           "success_vs_push_N": curve,
+           "success_total": success.double().mean().item(),
+           "launches": launches, "expected_launches": expect,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bound": ("lanes at or under 30 N: finite, every one standing "
+                     "(the push rule's z and attitude), LL qp_ok >= 0.9; "
+                     "exact launch counts"), "device": smi}
+    rec["ok"] = (rec["le30N_finite"] and rec["le30N_standing_share"] == 1.0
+                 and rec["le30N_ll_qp_ok"] >= 0.9 and launches == expect)
+    emit(rec)
+    check(rec["ok"], f"disturbance: {rec}")
+    slip32 = slip[:WB_CROSS_LANES].cpu().numpy()
+    del res
+
+    # where a tick's time goes: 5 trot ticks from the domain's start
+    (args,) = domain_args
+    five = args[4]._replace(ticks_per_domain=5)
+
+    def run5():
+        real_domain(*args[:4], five, *args[5:])
+
+    run5()
+    pwall, busy, by_name = device_profile(run5)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "disturbance", "what": "profile", "ticks": 5,
+          "lanes": WB_BATCH, "wall_ms_profiled": pwall * 1e3,
+          "device_busy_ms": busy, "idle_share": 1.0 - busy / (pwall * 1e3),
+          "top_kernels_ms": top, "device": smi})
+    del args, domain_args
+
+    # the first lanes in float64 through the kernels and the plain versions
+    k, p = ({key.split(".", 1)[1]: v for key, v in dist.items()
+             if key.startswith(pre)} for pre in ("ker.", "plain."))
+    rec = {"phase": "disturbance", "what": "float64 kernels vs plain",
+           "lanes": WB_CROSS_LANES, "ticks": list(DIST_CROSS),
+           "push_from_trot_tick": DIST_CROSS_PUSH[0],
+           "ll_qp_cfg": "relaxed, 5 Ruiz sweeps (the float32 run's)",
+           "max_abs_dq": float(np.abs(k["q"] - p["q"]).max()),
+           "max_abs_dcom": float(np.abs(k["com_hist"]
+                                        - p["com_hist"]).max()),
+           "max_abs_dslip": float(np.abs(k["slip"] - p["slip"]).max()),
+           "slip_max": float(k["slip"].max()),
+           "qp_ok_equal": bool(np.array_equal(k["qp_ok"], p["qp_ok"])),
+           "bound": "qp_ok equal; q, COM and slip within 1e-9",
+           "device": smi}
+    rec["ok"] = (rec["qp_ok_equal"] and max(
+        rec["max_abs_dq"], rec["max_abs_dcom"], rec["max_abs_dslip"]) <= 1e-9)
+    emit(rec)
+    check(rec["ok"], f"disturbance, kernels vs plain: {rec}")
+    slip64 = dist["deep.slip"].max(1)
+    emit({"phase": "disturbance", "what": "slip float64 vs float32",
+          "lanes": WB_CROSS_LANES, "ticks": list(DIST_DEPTH),
+          "slip_m_p50_f64": float(np.median(slip64)),
+          "slip_m_p50_f32": float(np.median(slip32)),
+          "slip_m_max_f64": float(slip64.max()),
+          "slip_m_max_f32": float(slip32.max()),
+          "ll_qp_cfg": "relaxed, 5 Ruiz sweeps in both dtypes",
+          "max_abs_dslip": float(np.abs(slip64 - slip32).max()),
+          "ll_qp_ok_f64": float(dist["deep.qp_ok"].mean()),
+          "finite_f64": bool(np.isfinite(dist["deep.q"]).all()),
+          "device": smi})
+
+    # the CLF-on/CLF-off pair without push or stiction
+    with open(ROOT / "docs" / "CLF_LOOP.json") as f:
+        record = json.load(f)
+    rec = {"phase": "disturbance", "what": "CLF on/off",
+           "lanes": WB_CROSS_LANES, "ticks": list(CLF_PAIR),
+           "config_f64": ("scripts/campaign_clf.py: MpcConfig(use_sqp="
+                          "False) uncondensed, the full LL build, "
+                          "QpConfig(), backend fused"),
+           "config_f32": "the disturbance phase's, no push, no stiction",
+           "record": {"com_dist_vs_noclf_max": record[
+               "com_dist_vs_noclf_max"], "ll_qp_converged_frac_clf": record[
+               "ll_qp_converged_frac_clf"], "ll_qp_converged_frac_noclf":
+               record["ll_qp_converged_frac_noclf"],
+               "source": "docs/CLF_LOOP.json (per-agent loop, 400 stand "
+                         "ticks and 6 domains, float64)"}, "device": smi}
+    for d in ("f64", "f32"):
+        on, off = ({key.split(".", 2)[2]: v for key, v in clf.items()
+                    if key.startswith(f"{d}.{tag}.")} for tag in ("on",
+                                                                  "off"))
+        rec[d] = {"com_dist_max": float(np.abs(on["com_hist"]
+                                               - off["com_hist"]).max()),
+                  "ll_qp_ok_clf": float(on["qp_ok"].mean()),
+                  "ll_qp_ok_noclf": float(off["qp_ok"].mean()),
+                  "finite": bool(np.isfinite(on["q"]).all()
+                                 and np.isfinite(off["q"]).all())}
+    rec["bound"] = "finite; float64 COM distance on/off <= 1e-3 m"
+    rec["ok"] = (rec["f64"]["finite"] and rec["f32"]["finite"]
+                 and rec["f64"]["com_dist_max"] <= 1e-3)
+    emit(rec)
+    check(rec["ok"], f"disturbance, CLF on/off: {rec}")
+    emit({"phase": "disturbance", "seconds": time.perf_counter() - t_phase,
+          "side_runs_s": {"dist": dist["seconds"], "clf": clf["seconds"]}})
+    return launches
 
 
 def main() -> int:
@@ -3396,9 +3722,17 @@ def main() -> int:
     sides = []
     try:
         team = team_phase(dev, smi, lambda: sides.extend(
-            start_side(est_w, plain) for plain in (False, True)))
+            [start_side(est_w, plain) for plain in (False, True)]
+            + [start_side(est_w, False, job)
+               for job in ("dist", "clf32", "clf")]))
+        # the disturbance phase's side runs end before any timed run too
+        dist, clf32, clf = (finish_side(side) for side in sides[2:])
+        clf = {**clf32, **clf, "ok": clf32["ok"] and clf["ok"],
+               "seconds": [clf32.get("seconds"), clf.get("seconds")]}
         # ----------------- 15. est_loop and 16. event ------------------- #
-        est = estimation_phases(dev, smi, est_w, sides)
+        est = estimation_phases(dev, smi, est_w, sides[:2])
+        # ----------------------- 17. disturbance ------------------------ #
+        est["disturbance"] = disturbance_phase(dev, smi, est_w, dist, clf)
     finally:
         for proc, _ in sides:
             if proc.is_alive():
@@ -3411,7 +3745,7 @@ def main() -> int:
         (key,) = kernel_keys[row["name"]]
         for path in ("team", "team_golden"):
             row["launches_by_path"][path] = team[path][key]
-        for path in ("est_loop", "event"):
+        for path in ("est_loop", "event", "disturbance"):
             row["launches_by_path"][path] = est[path][key]
         if key == "K1b":
             row["by_case"].update(team["k1b_cases"])

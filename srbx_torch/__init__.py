@@ -16,9 +16,10 @@ imports `torch`, never `jax`, and nothing of `srbx`.
   srbx_torch.estimation      the contact debouncer and estimators; the
                              KF, kinematic odometry and the pipeline that
                              closes them into the loops
-  srbx_torch.sim             batched physics, the sensor model and the
-                             closed loops (run_batch, the team's
-                             run_team_batch, the event-driven
+  srbx_torch.sim             batched physics (with stick-slip contact and
+                             trunk forces), the sensor model and the
+                             closed loops (run_batch, also under pushes;
+                             the team's run_team_batch, the event-driven
                              run_batch_event), with or without estimation
   srbx_torch.utils           transforms; prng, the JAX package's random
                              streams (threefry2x32)

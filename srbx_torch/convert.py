@@ -2,8 +2,9 @@
 
 The system has no learned weights; its state is what a user hands it or
 gets back: the NMPC carry (`MpcCarry`) and reference (`RefTraj`), the
-whole-body loop's plant, agent, contact-estimator and planner states
-(`SimState`, `AgentState`, `ConState`, `PlannerState`), its low-level
+whole-body loop's plant (with stick-slip contact its `ContactState`),
+agent, contact-estimator and planner states (`SimState`, `AgentState`,
+`ConState`, `PlannerState`), its low-level
 build's context (`LLCtx`, and `LLCtxR` of the reduced build) and its
 result (`LoopResult`), a campaign's result (`CampaignResult`), obstacle fields,
 footholds and QP operands; with estimation in the loop the estimator
@@ -31,7 +32,7 @@ from srbx_torch.utils import prng
 _PORT_TYPES = {
     cls.__name__: cls
     for cls in (mpc.MpcCarry, mpc.MpcOutput, refplan.RefTraj, ocp.OcpData,
-                wholebody.SimState, agent.AgentState,
+                wholebody.SimState, wholebody.ContactState, agent.AgentState,
                 agent.TickCtx, contact.ConState, motion.PlannerState,
                 closedloop.LoopResult, closedloop.EventBatchResult,
                 pipeline.EstState, pipeline.EstOut, kalman.KfState,

@@ -16,11 +16,10 @@ fields (`src/A1_Sim.cpp:811-1274`), with failure = any agent within
   * the neighbour exchange is a roll on the agent sub-axis of the lane axis.
 
 The JAX package's `lax.scan` over domains is a Python loop here. Random
-numbers come from a `torch.Generator` in place of a JAX key: the streams
-differ, so `sample_obstacles` gives other fields than the JAX package for
-the same seed (the JAX package's own fields enter through
-`_run_campaign_batch_core`), and with `disturbance > 0` the kicks are
-statistically equivalent to the JAX package's, not bitwise.
+numbers come from JAX keys through `srbx_torch.utils.prng` (a key is the
+port's int64 key tensor, `prng.key(seed)`, or the JAX package's raw key),
+so that a key gives the JAX package's obstacle fields and, with
+`disturbance > 0`, its per-domain kicks.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from srbx_torch import gait as gaitmod
 from srbx_torch import mpc, mpc_batch, refplan
 from srbx_torch.config import Gait, MpcConfig, QpConfig
 from srbx_torch.ocp import default_footholds
+from srbx_torch.utils import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,34 +56,30 @@ class CampaignResult(NamedTuple):
     traj: torch.Tensor           # (S, n_domains, n_agents, 2) COM track
 
 
-def _uniform(generator, shape, lo, hi, dtype):
-    u = torch.rand(shape, generator=generator, device=generator.device,
-                   dtype=dtype)
-    return lo + (hi - lo) * u
-
-
-def sample_obstacles(generator: torch.Generator, n_scenarios: int,
-                     n_obstacles: int, uncertainty: float = 0.6,
-                     dtype=torch.float64, device=None):
+def sample_obstacles(key, n_scenarios: int, n_obstacles: int,
+                     uncertainty: float = 0.6, dtype=torch.float64,
+                     device=None):
     """Randomized obstacle fields (reference `src/A1_Sim.cpp:940-981`):
     nominal positions U([0,9] x [-2,2]); real positions = nominal +
     U(+-uncertainty) clamped to [1,9] x [-3,3]. Returns (pobs, real), each
     (S, 2, n_obs).
 
-    The numbers come from `generator` on its own device, so a seed gives
-    the same fields wherever they land; `device=None` means the CUDA card.
+    The JAX package's draws: `split(key, 3)`, then one uniform on each
+    subkey, in `dtype` (the JAX package draws in its x64 flag's float type),
+    on `device` (None means the CUDA card).
     """
-    device = "cuda" if device is None else device
+    key = prng.as_key(key, device)
+    k1, k2, k3 = prng.split(key, 3).unbind(-2)
     shape = (n_scenarios, n_obstacles)
-    xs = _uniform(generator, shape, 0.0, 9.0, dtype)
-    ys = _uniform(generator, shape, -2.0, 2.0, dtype)
+    xs = prng.uniform(k1, shape, dtype, 0.0, 9.0)
+    ys = prng.uniform(k2, shape, dtype, -2.0, 2.0)
     pobs = torch.stack([xs, ys], 1)                       # (S, 2, n_obs)
-    noise = _uniform(generator, (n_scenarios, 2, n_obstacles), -uncertainty,
-                     uncertainty, dtype)
+    noise = prng.uniform(k3, (n_scenarios, 2, n_obstacles), dtype,
+                         -uncertainty, uncertainty)
     real = pobs + noise
     real = torch.stack([real[:, 0].clamp(1.0, 9.0),
                         real[:, 1].clamp(-3.0, 3.0)], 1)
-    return pobs.to(device), real.to(device)
+    return pobs, real
 
 
 def _contact_table(n_domains: int, dtype, device):
@@ -100,27 +96,28 @@ def run_campaign_batch(
     camp: CampaignConfig,
     ref_cfg: refplan.RefPlanConfig,
     p_start,
-    generator: torch.Generator,
+    key,
     n_scenarios: int,
     backend: str = "fused",
     warm_start_qp: bool = False,
     dtype=torch.float64,
     device=None,
 ) -> CampaignResult:
-    """Full batched campaign: sample obstacle fields from `generator`, plan
-    APF references, and run every scenario's closed loop, all (scenario x
-    agent) lanes of a domain in one NMPC cycle.
+    """Full batched campaign: sample obstacle fields, plan APF references,
+    and run every scenario's closed loop, all (scenario x agent) lanes of a
+    domain in one NMPC cycle.
 
-    The JAX signature with a generator in place of the key (the fields are
-    drawn first, then any disturbance kicks) and without the TPU-only
-    `tile`; `dtype` is the run's floating type (the JAX package takes it
-    from its x64 flag); `device=None` means the CUDA card.
+    The JAX signature without the TPU-only `tile`: `split(key)` gives the
+    fields' key and the run's (the kicks'), as there; `dtype` is the run's
+    floating type (the JAX package takes it from its x64 flag);
+    `device=None` means the CUDA card.
     """
+    k_obs, k_run = prng.split(prng.as_key(key, device)).unbind(-2)
     pobs, pobs_real = sample_obstacles(
-        generator, n_scenarios, camp.n_obstacles, camp.obstacle_uncertainty,
+        k_obs, n_scenarios, camp.n_obstacles, camp.obstacle_uncertainty,
         dtype, device)
     return _run_campaign_batch_core(
-        cfg, qp_cfg, camp, ref_cfg, p_start, pobs, pobs_real, generator,
+        cfg, qp_cfg, camp, ref_cfg, p_start, pobs, pobs_real, k_run,
         backend, warm_start_qp=warm_start_qp)
 
 
@@ -132,7 +129,7 @@ def _run_campaign_batch_core(
     p_start,
     pobs,          # (S, 2, n_obs) nominal fields (APF input)
     pobs_real,     # (S, 2, n_obs) true fields (CBF + failure detection)
-    generator,     # torch.Generator for the kicks; None without disturbance
+    k_run,         # the kicks' key; None without disturbance
     backend: str,
     warm_start_qp: bool = False,
 ) -> CampaignResult:
@@ -141,7 +138,53 @@ def _run_campaign_batch_core(
     pr_l, prd_l = plan_lanes(ref_cfg, p_start, pobs, camp.n_agents,
                              pobs_real.dtype, pobs_real.device)
     return run_domains(cfg, qp_cfg, camp, p_start, pr_l, prd_l, pobs_real,
-                       generator, backend, warm_start_qp)
+                       k_run, backend, warm_start_qp)
+
+
+def run_campaign_chunked(
+    cfg: MpcConfig,
+    qp_cfg: QpConfig,
+    camp: CampaignConfig,
+    ref_cfg: refplan.RefPlanConfig,
+    p_start,
+    key,
+    n_scenarios: int,
+    max_chunk: int = 512,
+    batch_backend: str | None = None,
+    dtype=torch.float64,
+    device=None,
+) -> CampaignResult:
+    """The campaign in chunks of at most `max_chunk` scenarios, each through
+    `run_campaign_batch` on `batch_backend`: one chunk on `key` when
+    n_scenarios <= max_chunk, else one on each key of `split(key,
+    n_chunks)`, the results concatenated along the scenario axis, as the
+    JAX package's `run_campaign_chunked`. n_scenarios must divide into
+    chunks of max_chunk. dtype and device as in `run_campaign_batch`.
+
+    batch_backend=None, the JAX package's per-agent vmapped path
+    (`run_campaign`), is not ported (ROADMAP M10) and raises
+    NotImplementedError.
+    """
+    if batch_backend is None:
+        raise NotImplementedError(
+            "srbx_torch runs run_campaign_chunked through run_campaign_batch "
+            "only (pass batch_backend); the per-agent run_campaign path is "
+            "ROADMAP M10")
+
+    def runner(k, n):
+        return run_campaign_batch(cfg, qp_cfg, camp, ref_cfg, p_start, k, n,
+                                  backend=batch_backend, dtype=dtype,
+                                  device=device)
+
+    key = prng.as_key(key, device)
+    if n_scenarios <= max_chunk:
+        return runner(key, n_scenarios)
+    n_chunks, rem = divmod(n_scenarios, max_chunk)
+    if rem:
+        raise ValueError(f"n_scenarios={n_scenarios} not divisible by "
+                         f"{max_chunk}")
+    outs = [runner(k, max_chunk) for k in prng.split(key, n_chunks)]
+    return CampaignResult(*(torch.cat(xs, 0) for xs in zip(*outs)))
 
 
 def plan_lanes(ref_cfg: refplan.RefPlanConfig, p_start, pobs, n_agents: int,
@@ -156,7 +199,7 @@ def plan_lanes(ref_cfg: refplan.RefPlanConfig, p_start, pobs, n_agents: int,
 
 
 def run_domains(cfg: MpcConfig, qp_cfg: QpConfig, camp: CampaignConfig,
-                p_start, pr_l, prd_l, pobs_real, generator, backend: str,
+                p_start, pr_l, prd_l, pobs_real, k_run, backend: str,
                 warm_start_qp: bool = False) -> CampaignResult:
     """The closed loop over `camp.n_domains` gait domains, one NMPC cycle
     for all lanes a domain, on the lanes' references (`plan_lanes`). It
@@ -168,8 +211,10 @@ def run_domains(cfg: MpcConfig, qp_cfg: QpConfig, camp: CampaignConfig,
     n_scenarios = pobs_real.shape[0]
     na = camp.n_agents
     n_lanes = n_scenarios * na
-    if camp.disturbance > 0 and generator is None:
-        raise ValueError("camp.disturbance > 0 needs a generator")
+    if camp.disturbance > 0 and k_run is None:
+        raise ValueError("camp.disturbance > 0 needs a key (k_run)")
+    keys = (prng.split(prng.as_key(k_run, device), camp.n_domains)
+            if camp.disturbance > 0 else None)
     agent0 = torch.as_tensor(p_start).to(dtype=dtype, device=device) \
         .reshape(na, 2)
     pobs_l = pobs_real.repeat_interleave(na, 0)           # (L, 2, n_obs)
@@ -205,9 +250,8 @@ def run_domains(cfg: MpcConfig, qp_cfg: QpConfig, camp: CampaignConfig,
         q_n = out.states[:, -1, 0::2]                     # (x, y)
         dq_n = out.states[:, -1, 1::2]                    # (dx, dy)
         if camp.disturbance > 0:
-            kick = torch.randn(dq_n.shape, generator=generator,
-                               device=generator.device, dtype=dtype)
-            dq_n = dq_n + camp.disturbance * kick.to(device)
+            dq_n = dq_n + camp.disturbance * prng.normal(
+                keys[dom], dq_n.shape, dtype)
 
         # failure detector (`src/MPC_dist.cpp:21-40`), latched per lane
         diff = q_n[:, :, None] - pobs_l

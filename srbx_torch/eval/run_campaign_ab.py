@@ -8,10 +8,13 @@ Counterpart of `srbx/eval/run_campaign_ab.py`: 2 agents a scenario, 20
 obstacles a field, the APF reference of 40,000 steps, float32, the relaxed
 solver configuration, both legs in the formulation
 "condensed+simplex+elided+fused" (the lanes-last NMPC cycle through kernel
-K1a). Without a seed the fields are the JAX package's of key 0 (committed in
-`tests/data/campaign_fields_jax.npz`, 1024 scenarios), so that the success
-rates compare with `docs/CAMPAIGN_1024.json`; with a seed the runner draws
-its own fields (`campaign.sample_obstacles`).
+K1a). The fields are drawn as the JAX runner draws them, from `key(seed)`
+(seed 0 by default, the JAX runner's `jax.random.key(0)`) split into the
+fields' key and the run's (`campaign.sample_obstacles` on the first, in
+float32): at 1024 scenarios they are the JAX package's fields behind
+`docs/CAMPAIGN_1024.json` (also committed in
+`tests/data/campaign_fields_jax.npz`), so that the success rates compare
+with it.
 
 Each leg runs twice, each run ended by one synchronize: the first (with
 any kernel build and lazy initialisation) and the steady run, whose planner
@@ -28,15 +31,14 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from srbx_torch import refplan
 from srbx_torch.config import MpcConfig, QpConfig
 from srbx_torch.eval import analysis, campaign
+from srbx_torch.utils import prng
 
 ROOT = Path(__file__).resolve().parents[2]
-FIELDS = ROOT / "tests" / "data" / "campaign_fields_jax.npz"
 FORMULATION = "condensed+simplex+elided+fused"
 QP_CFG = QpConfig(abstol=2e-3, reltol=1e-4, reg_primal=1e-6, reg_dual=1e-6,
                   max_iters=12)
@@ -47,16 +49,6 @@ LEGS = {"qp_only": False, "cbf_sqp": True}
 def leg_config(use_sqp: bool) -> MpcConfig:
     return MpcConfig(use_sqp=use_sqp, sqp_iters=2, condensed=True,
                      elide_box_rows=True, elide_simplex=True)
-
-
-def jax_fields(key: str, dtype, device):
-    """The JAX package's fields of `key` ("key0": the A/B runner's, 1024
-    scenarios; "key1234": the template_campaign golden's, 32), as (pobs,
-    pobs_real) tensors."""
-    with np.load(FIELDS) as f:
-        return tuple(torch.as_tensor(f[f"{key}.{name}"]).to(dtype=dtype,
-                                                             device=device)
-                     for name in ("pobs", "pobs_real"))
 
 
 def card_name() -> str:
@@ -72,7 +64,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def main(n_scenarios: int = 1024, n_domains: int = 120, seed=None,
+def main(n_scenarios: int = 1024, n_domains: int = 120, seed: int = 0,
          device=None, loop_size: int = 40_000, legs=tuple(LEGS), out=None):
     """Run the A/B legs; returns (summary, {leg: CampaignResult}).
 
@@ -87,19 +79,11 @@ def main(n_scenarios: int = 1024, n_domains: int = 120, seed=None,
     dtype = torch.float32
     camp = campaign.CampaignConfig(n_agents=2, n_domains=n_domains)
     ref_cfg = refplan.two_agent_config(loop_size=loop_size)
-    if seed is None:
-        pobs, pobs_real = jax_fields("key0", dtype, device)
-        if pobs.shape[0] != n_scenarios:
-            raise ValueError(
-                f"the JAX package's key-0 fields are {pobs.shape[0]} "
-                f"scenarios, not {n_scenarios}: pass a seed")
-        fields = "jax key 0 (tests/data/campaign_fields_jax.npz)"
-    else:
-        gen = torch.Generator().manual_seed(int(seed))
-        pobs, pobs_real = campaign.sample_obstacles(
-            gen, n_scenarios, camp.n_obstacles, camp.obstacle_uncertainty,
-            dtype, device)
-        fields = f"campaign.sample_obstacles, torch seed {seed}"
+    k_obs, k_run = prng.split(prng.key(seed, device)).unbind(-2)
+    pobs, pobs_real = campaign.sample_obstacles(
+        k_obs, n_scenarios, camp.n_obstacles, camp.obstacle_uncertainty,
+        dtype, device)
+    fields = f"campaign.sample_obstacles on split(jax key {seed})[0]"
     p_start = torch.tensor(P_START, dtype=dtype, device=device)
 
     out_d = {"n_scenarios": n_scenarios, "n_domains": n_domains,
@@ -113,7 +97,7 @@ def main(n_scenarios: int = 1024, n_domains: int = 120, seed=None,
         out_d["formulation"][label] = FORMULATION
         t0 = time.perf_counter()
         res = campaign._run_campaign_batch_core(
-            cfg, QP_CFG, camp, ref_cfg, p_start, pobs, pobs_real, None,
+            cfg, QP_CFG, camp, ref_cfg, p_start, pobs, pobs_real, k_run,
             "fused")
         _sync(device)
         first = time.perf_counter() - t0
@@ -123,7 +107,7 @@ def main(n_scenarios: int = 1024, n_domains: int = 120, seed=None,
         _sync(device)
         t1 = time.perf_counter()
         res = campaign.run_domains(cfg, QP_CFG, camp, p_start, pr_l, prd_l,
-                                   pobs_real, None, "fused")
+                                   pobs_real, k_run, "fused")
         _sync(device)
         t2 = time.perf_counter()
         summ = analysis.campaign_summary(res)

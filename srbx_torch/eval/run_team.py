@@ -12,9 +12,10 @@ elide_box_rows=True, elide_simplex=True)`; the relaxed `QpConfig`; backend
 "fused"; the reduced LL QP (n 25, me 12), which float32 solves after 5 Ruiz
 sweeps. The agents start at `P_START` and follow the APF reference of four
 agents (`loop_size` 20,000 steps). Each field has 20 obstacles, x uniform
-in [3, 8] and y in [-2, 2], drawn from a `torch.Generator` seeded with
-`seed` (the JAX script draws `jax.random.key(7)`'s bits, which the port
-cannot reproduce).
+in [3, 8] and y in [-2, 2], drawn as the JAX script draws them from
+`jax.random.key(seed)` (seed 7 there): `split`, then a float32 uniform on
+each subkey (`srbx_torch.utils.prng`), so that the fields are the JAX
+script's.
 
 A short warm-up run (2 stand ticks, one domain of 2 ticks) comes first;
 then the timed run: the batched planner over the S fields (`planner_s`)
@@ -41,6 +42,7 @@ from srbx_torch.config import LowLevelConfig, MotionConfig, MpcConfig, QpConfig
 from srbx_torch.eval.run_campaign_ab import card_name
 from srbx_torch.models import a1
 from srbx_torch.sim import closedloop, wholebody as wb
+from srbx_torch.utils import prng
 
 N_AGENTS = 4
 N_OBSTACLES = 20
@@ -53,13 +55,13 @@ BACKEND = "fused"
 
 
 def sample_fields(n_scenarios: int, seed: int, dtype, device):
-    """(S, 2, 20) obstacle fields, x in [3, 8] and y in [-2, 2], drawn on
-    the CPU from a torch.Generator seeded with `seed`."""
-    gen = torch.Generator().manual_seed(int(seed))
-    xs = 3.0 + 5.0 * torch.rand(n_scenarios, N_OBSTACLES, generator=gen,
-                                dtype=torch.float64)
-    ys = -2.0 + 4.0 * torch.rand(n_scenarios, N_OBSTACLES, generator=gen,
-                                 dtype=torch.float64)
+    """(S, 2, 20) obstacle fields, x in [3, 8] and y in [-2, 2]: the JAX
+    script's draws from `key(seed)` (float32 uniforms on the two keys of its
+    split), in `dtype` on `device`."""
+    k1, k2 = prng.split(prng.key(seed, device)).unbind(-2)
+    xs = prng.uniform(k1, (n_scenarios, N_OBSTACLES), torch.float32, 3.0, 8.0)
+    ys = prng.uniform(k2, (n_scenarios, N_OBSTACLES), torch.float32, -2.0,
+                      2.0)
     return torch.stack([xs, ys], 1).to(dtype=dtype, device=device)
 
 

@@ -25,8 +25,15 @@ aux_pen ||A'x + C||^2 of the reference's alternative formulation:
 Every argument carries a leading lane axis B. The operands are built
 batched with `torch.cat` and products (no per-lane writes); where the JAX
 package multiplies by the constant selector B = [0; I12] the port slices,
-which gives the same numbers. Not ported: the CLF row (`use_clf=True`),
-which raises NotImplementedError in either build.
+which gives the same numbers.
+
+With `LowLevelConfig.use_clf` both builds carry the CLF decrease row
+(`src/LowLevelCtrl.cpp:171-225`), row 44 of the inequalities: LgV . aux -
+delta <= -LfV - (c/eps) V, where V is the closed-form Lyapunov function of
+the output error (y, dy) (`_clf_terms`) and delta, the last decision
+variable, is penalised by clf_pen; the reduced build substitutes aux =
+-(a_out x + c_out). Without it row 44 is inert (0 <= 1) and delta's weight
+is 1.
 """
 
 from __future__ import annotations
@@ -104,10 +111,10 @@ class LLCtx(NamedTuple):
     toe_jac: torch.Tensor   # (B, 4, 3, 18)
     toe_pos: torch.Tensor   # (B, 4, 3)
     con: torch.Tensor       # (B, 4)
-    v: torch.Tensor         # CLF terms (zeros: the CLF is not ported)
-    lf_v: torch.Tensor
-    lg_v: torch.Tensor
-    c_eps: torch.Tensor
+    v: torch.Tensor         # (B,) CLF terms, zeros without use_clf
+    lf_v: torch.Tensor      # (B,)
+    lg_v: torch.Tensor      # (B, 18)
+    c_eps: torch.Tensor     # (B,)
 
 
 def virtual_constraints(ll_cfg: LowLevelConfig, motion: MotionConfig, q, qd,
@@ -182,7 +189,8 @@ def _qp_consts(ll_cfg: LowLevelConfig, dtype, device):
     block present, and the torque-bound rows of h."""
     p_diag = np.concatenate([np.full(12, ll_cfg.df_pen),
                              np.full(12, ll_cfg.tau_pen),
-                             np.full(18, ll_cfg.aux_pen), [1.0]])
+                             np.full(18, ll_cfg.aux_pen),
+                             [_delta_pen(ll_cfg)]])
     mu = ll_cfg.mu
     gc = np.array([[1.0, 0.0, -mu / np.sqrt(2)],
                    [-1.0, 0.0, -mu / np.sqrt(2)],
@@ -205,10 +213,45 @@ def _qp_consts(ll_cfg: LowLevelConfig, dtype, device):
             t(np.eye(N_EQ - 12)), t(sel))
 
 
-def _no_clf(ll_cfg: LowLevelConfig):
-    if ll_cfg.use_clf:
-        raise NotImplementedError("srbx_torch does not port the CLF row of "
-                                  "the LL QP (LowLevelConfig.use_clf)")
+def _delta_pen(ll_cfg: LowLevelConfig) -> float:
+    """The weight of the CLF relaxation delta: clf_pen with the CLF row,
+    else 1."""
+    return ll_cfg.clf_pen if ll_cfg.use_clf else 1.0
+
+
+def _clf_terms(ll_cfg: LowLevelConfig, y, dy, out_mask):
+    """The CLF from the closed-form Lyapunov solution
+    (`src/LowLevelCtrl.cpp:171-225`), per lane: (V (B,), LfV (B,), LgV
+    (B, 18) masked to the active outputs, c / eps), P's top-left block
+    scaled by 1/eps^2 and its off-diagonal blocks by 1/eps."""
+    kp, kd = ll_cfg.kp, ll_cfg.kd
+    p1 = (kd * kd + kp * kp + kp) / (2.0 * kp * kd)
+    pd = 1.0 / (2.0 * kp)
+    p2 = (kp + 1.0) / (2.0 * kd * kp)
+    cc = 1.0 / (0.5 * (p1 + p2 + np.sqrt(p1 * p1 - 2 * p1 * p2 + p2 * p2
+                                          + 4 * pd * pd)))
+    eps = ll_cfg.clf_eps
+    yy, ydy, dydy = (y * y).sum(-1), (y * dy).sum(-1), (dy * dy).sum(-1)
+    v = (p1 / eps**2) * yy + 2.0 * (pd / eps) * ydy + p2 * dydy
+    lf_v = (-2.0 * kp * (pd / eps) * yy
+            + 2.0 * ((p1 / eps**2) - kp * p2 - kd * (pd / eps)) * ydy
+            + 2.0 * ((pd / eps) - kd * p2) * dydy)
+    lg_v = 2.0 * ((pd / eps) * y + p2 * dy)
+    return v, lf_v, lg_v * out_mask, torch.full_like(v, cc / eps)
+
+
+def _clf_row(ll_cfg, vc, g, h, lg_cols, h_extra=None):
+    """G and h with row 44 the CLF row: lg_cols (B, n - 1) on the decision
+    variables before delta, -1 on delta, and h = -LfV - (c/eps) V (+
+    h_extra). Returns (G, h, (V, LfV, LgV, c/eps))."""
+    terms = _clf_terms(ll_cfg, vc.y, vc.dy, vc.out_mask)
+    v, lf_v, lg_v, c_eps = terms
+    row = torch.cat([lg_cols(lg_v), -torch.ones_like(v)[:, None]], 1)
+    h44 = -lf_v - c_eps * v
+    if h_extra is not None:
+        h44 = h44 + h_extra(lg_v)
+    return (torch.cat([g[:, :N_INEQ - 1], row[:, None]], 1),
+            torch.cat([h[:, :N_INEQ - 1], h44[:, None]], 1), terms)
 
 
 class _Terms(NamedTuple):
@@ -245,7 +288,8 @@ def _terms(ll_cfg, model, q, qd, contact_ind, include_coriolis, d_inv):
 
 def _inequalities(ll_cfg, con, n_dec):
     """G (B, 45, n_dec) and h (B, 45): the friction pyramids scaled by
-    contact, the torque bounds, and the (unported, zero) CLF row."""
+    contact, the torque bounds, and row 44 inert (0 <= 1), which the CLF
+    row replaces under use_clf (`_clf_row`)."""
     g_full, h_bounds = _qp_consts(ll_cfg, con.dtype, con.device)[1:3]
     bsz = con.shape[0]
     con5 = con.repeat_interleave(5, -1)                          # (B, 20)
@@ -258,13 +302,16 @@ def _inequalities(ll_cfg, con, n_dec):
     return G.contiguous(), h.contiguous()
 
 
-def _ctx(model, q, t: _Terms):
-    zero = torch.zeros(q.shape[0], dtype=q.dtype, device=q.device)
+def _ctx(model, q, t: _Terms, clf=None):
+    """The finish stage's context; clf: the CLF terms, zeros without."""
+    bsz = q.shape[0]
+    if clf is None:
+        zero = torch.zeros(bsz, dtype=q.dtype, device=q.device)
+        clf = (zero, zero, torch.zeros((bsz, 18), dtype=q.dtype,
+                                       device=q.device), zero)
     toe_pos = rbd.site_positions(model, q)[:, a1.TOE_SITES]
     return LLCtx(t.d_inv, t.b_mat, t.h_bias, t.jc_flat, t.toe_jac, toe_pos,
-                 t.con, zero, zero, torch.zeros((q.shape[0], 18),
-                                                dtype=q.dtype,
-                                                device=q.device), zero)
+                 t.con, *clf)
 
 
 def ll_qp_build(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd, contact_ind,
@@ -275,8 +322,8 @@ def ll_qp_build(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd, contact_ind,
 
     d_inv: (B, 18, 18) D(q)^-1; when None it is computed here with
     `srbx_torch.ops.spd.inverse` (the JAX package's per-lane inverse is an
-    LU one; its batched loop's "xla" form passes that in)."""
-    _no_clf(ll_cfg)
+    LU one; its batched loop's "xla" form passes that in). With use_clf
+    row 44 is the CLF row on the aux columns 24:42 and delta (column 42)."""
     dtype = q.dtype
     bsz = q.shape[0]
     t = _terms(ll_cfg, model, q, qd, contact_ind, include_coriolis, d_inv)
@@ -309,11 +356,16 @@ def ll_qp_build(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd, contact_ind,
          - vc.dh0) * vc.out_mask,
     ], 1)
 
-    # inequalities: friction pyramids scaled by contact, torque bounds
+    # inequalities: friction pyramids scaled by contact, torque bounds, and
+    # with use_clf the CLF row on the aux columns
     G, h = _inequalities(ll_cfg, t.con, N_DEC)
+    clf = None
+    if ll_cfg.use_clf:
+        G, h, clf = _clf_row(ll_cfg, vc, G, h, lambda lg_v: torch.cat(
+            [torch.zeros((bsz, 24), dtype=dtype, device=q.device), lg_v], 1))
     data = LLQpData(P, c.contiguous(), a_eq.contiguous(), b_eq.contiguous(),
-                    G, h)
-    return data, _ctx(model, q, t)
+                    G.contiguous(), h.contiguous())
+    return data, _ctx(model, q, t, clf)
 
 
 class LLCtxR(NamedTuple):
@@ -333,10 +385,11 @@ def ll_qp_build_reduced(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd,
     ||aux||^2 becomes aux_pen ||A'x + C||^2 with A' = H0 D^-1 [Jc' | B] and
     C = -H0 D^-1 H + dH0 + kp y + kd dy on the active output rows. n 25,
     me 12 (the contact rows), mi 45: the same solution set as the full
-    build to eps-optimality. d_inv as in `ll_qp_build`.
+    build to eps-optimality. d_inv as in `ll_qp_build`. With use_clf row 44
+    is the CLF row with aux substituted: -(LgV a_out) on columns 0:24, -1
+    on delta (column 24), h = -LfV - (c/eps) V + LgV . c_out.
 
     Returns (LLQpData, LLCtxR); `ll_qp_finish_reduced` completes it."""
-    _no_clf(ll_cfg)
     dtype = q.dtype
     bsz = q.shape[0]
     t = _terms(ll_cfg, model, q, qd, contact_ind, include_coriolis, d_inv)
@@ -351,7 +404,8 @@ def ll_qp_build_reduced(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd,
              + kp * vc.y + kd * vc.dy) * vc.out_mask
     a_out_t = a_out.transpose(1, 2)
     p_diag = torch.tensor([ll_cfg.df_pen] * 12 + [ll_cfg.tau_pen] * 12
-                          + [1.0], dtype=dtype, device=q.device)
+                          + [_delta_pen(ll_cfg)], dtype=dtype,
+                          device=q.device)
     P = torch.nn.functional.pad(ll_cfg.aux_pen * (a_out_t @ a_out),
                                 (0, 1, 0, 1)) + torch.diag(p_diag)
     atc = ll_cfg.aux_pen * (a_out_t @ c_out[:, :, None])[..., 0]   # (B, 24)
@@ -365,9 +419,15 @@ def ll_qp_build_reduced(ll_cfg: LowLevelConfig, model: rbd.Model, q, qd,
     b_eq = (jc_dinv @ t.h_bias[:, :, None])[..., 0] - t.djc_qd
 
     G, h = _inequalities(ll_cfg, t.con, N_DEC2)
+    clf = None
+    if ll_cfg.use_clf:
+        G, h, clf = _clf_row(
+            ll_cfg, vc, G, h,
+            lambda lg_v: -(lg_v[:, None, :] @ a_out)[:, 0],
+            lambda lg_v: (lg_v * c_out).sum(-1))
     data = LLQpData(P.contiguous(), c.contiguous(), a_eq.contiguous(),
-                    b_eq.contiguous(), G, h)
-    return data, LLCtxR(_ctx(model, q, t), a_out, c_out)
+                    b_eq.contiguous(), G.contiguous(), h.contiguous())
+    return data, LLCtxR(_ctx(model, q, t, clf), a_out, c_out)
 
 
 def expand_reduced_x(ctx: LLCtxR, sol_x):
@@ -395,8 +455,9 @@ def ll_qp_finish(ll_cfg: LowLevelConfig, ctx: LLCtx, q, qd, vc: VcOut, sol_x,
     swing-leg PD add-on, and the joint-command integration.
 
     delta: (B, 12, 12) inverse of `swing_delta_inv(ctx)`; when None it is
-    computed here with `srbx_torch.ops.spd.inverse`."""
-    _no_clf(ll_cfg)
+    computed here with `srbx_torch.ops.spd.inverse`. With use_clf, dv_lyap
+    is the CLF's derivative along the solution, LfV + (c/eps) V + LgV .
+    aux; zeros without."""
     from srbx_torch.ops import spd
 
     dtype = q.dtype
@@ -406,6 +467,8 @@ def ll_qp_finish(ll_cfg: LowLevelConfig, ctx: LLCtx, q, qd, vc: VcOut, sol_x,
     con3 = con.repeat_interleave(3, -1)
     f_qp = sol_x[:, 0:12] * con3
     tau = sol_x[:, 12:24]
+    dv = (ctx.lf_v + ctx.c_eps * ctx.v + (ctx.lg_v * sol_x[:, 24:42]).sum(-1)
+          if ll_cfg.use_clf else torch.zeros_like(ctx.v))
 
     js_flat = (ctx.toe_jac * swing[:, :, None, None]).reshape(bsz, 12,
                                                               TOTAL_DOF)
@@ -433,7 +496,7 @@ def ll_qp_finish(ll_cfg: LowLevelConfig, ctx: LLCtx, q, qd, vc: VcOut, sol_x,
     q_next = q + dq_next / hz + 0.5 / (hz * hz) * ddq
     return LLOut(tau=tau_full[:, 6:], grf=f_qp, y=vc.y, dy=vc.dy, ddq=ddq,
                  q_next=q_next, dq_next=dq_next, v_lyap=ctx.v,
-                 dv_lyap=torch.zeros_like(ctx.v), qp_converged=converged)
+                 dv_lyap=dv, qp_converged=converged)
 
 
 def ll_qp_finish_reduced(ll_cfg: LowLevelConfig, ctx: LLCtxR, q, qd,

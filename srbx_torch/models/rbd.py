@@ -421,7 +421,11 @@ def forward_dynamics_batch(model: Model, q, qd, tau, f_ext_sites=None,
     """qdd = D^-1 (tau + sum J' f_ext - H) for lanes (B, nq); the SPD solve
     runs through `srbx_torch.ops.spd.solve` (kernel K2a on the card).
 
-    d: optional precomputed (B, nq, nq) mass matrices at q."""
+    d: optional precomputed (B, nq, nq) mass matrices at q. The JAX
+    package's `backend` and `tile` are not taken: they choose spd.solve's
+    route there, the TPU kernel or jax.scipy's Cholesky (a library path);
+    here K2a is the only route on the card. `forward_dynamics` is the
+    per-lane LAPACK form that the JAX package's "xla" loops take."""
     from srbx_torch.ops import spd
 
     if d is None:

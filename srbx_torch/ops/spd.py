@@ -33,6 +33,11 @@ Two implementations with one semantics:
 
 Both are bitwise equal: the kernels round every product and difference
 (no fused multiply-add) and update each entry in the plain loop's order.
+
+The JAX package's `backend`, `tile` and `interpret` are not taken. `tile`
+and `interpret` are the TPU kernel's; `backend` picks between that kernel
+("pallas") and jax.scipy's Cholesky ("xla", its default), a library path:
+in the port the kernel is the only route on the card.
 Each wrapper counts its launches in a plain integer attribute
 (`solve.launches`, `inverse.launches`).
 """
@@ -163,7 +168,9 @@ def solve(d, rhs):
     with rhs's shape.
 
     CPU tensors go to `solve_plain`. CUDA tensors launch the CUDA kernel
-    (K2a), which adds one to `solve.launches`; any failure raises."""
+    (K2a), which adds one to `solve.launches`; any failure raises. The JAX
+    package's backend, tile and interpret are not taken (module
+    docstring)."""
     _check(d, rhs)
     if d.device.type == "cpu":
         return solve_plain(d, rhs)
@@ -181,7 +188,9 @@ def inverse(d):
     contiguous.
 
     CPU tensors go to `inverse_plain`. CUDA tensors launch the CUDA kernel
-    (K2b), which adds one to `inverse.launches`; any failure raises."""
+    (K2b), which adds one to `inverse.launches`; any failure raises. The
+    JAX package's backend, tile and interpret are not taken (module
+    docstring)."""
     _check(d)
     if d.device.type == "cpu":
         return inverse_plain(d)

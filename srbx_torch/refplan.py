@@ -127,7 +127,7 @@ def _replay(block, n: int, device):
 
 
 def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
-             device=None) -> RefTraj:
+             return_raw: bool = False, device=None) -> RefTraj:
     """Roll the APF planner and downsample.
 
     p_start: (2*n_agents,) starting xy per agent; pobs: (2, n_obs), or
@@ -139,6 +139,10 @@ def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
     edge-padding the tail). On the card the rollout is one CUDA graph of
     `downsample` steps, replayed once per knot. device=None means the CUDA
     card.
+
+    return_raw: also return the full rollout, (RefTraj, (pos_hist,
+    vel_hist)) with each of the loop_size steps' pre-step state,
+    (loop_size, ..., n_agents, 2), as the JAX package returns it.
     """
     device = torch.device("cuda" if device is None else device)
     na = cfg.n_agents
@@ -160,12 +164,27 @@ def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
     vel_hist[0] = vel
     step_i = torch.zeros((), dtype=dtype, device=device)   # the step index
     knot = torch.ones(1, dtype=torch.int64, device=device)  # the next knot
+    n_blocks = n_knots - 1
+    if return_raw:
+        # every step's pre-step state; one more block covers the steps after
+        # the last knot (its knot lands in a spare row)
+        n_blocks = n_knots
+        pos_hist = torch.cat([pos_hist, pos_hist[:1]], 0)
+        vel_hist = torch.cat([vel_hist, vel_hist[:1]], 0)
+        raw_pos = torch.empty((n_knots * cfg.downsample,) + pos.shape,
+                              dtype=dtype, device=device)
+        raw_vel = torch.empty_like(raw_pos)
+        raw_i = torch.zeros(1, dtype=torch.int64, device=device)
 
     def block():
         """`cfg.downsample` steps, then the state recorded as the next
         knot, in place on the buffers above: static shapes and no host
         values, so that on the card it is captured in a CUDA graph."""
         for _ in range(cfg.downsample):
+            if return_raw:
+                raw_pos.index_copy_(0, raw_i, pos[None])
+                raw_vel.index_copy_(0, raw_i, vel[None])
+                raw_i.add_(1)
             f = _forces(cfg, pos, pobs_t, goal, not_self)
             if cfg.ramp_up_iters > 0:
                 f = f * (step_i / cfg.ramp_up_iters).clamp(max=1.0)
@@ -178,7 +197,8 @@ def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
         knot.add_(1)
 
     # the steps after the last recorded knot change nothing recorded
-    _replay(block, n_knots - 1, device)
+    _replay(block, n_blocks, device)
+    pos_hist, vel_hist = pos_hist[:n_knots], vel_hist[:n_knots]
 
     ds = torch.cat([pos_hist[2:], pos_hist[-1:], pos_hist[-1:]], 0)
     dsv = torch.cat([vel_hist[2:], vel_hist[-1:], vel_hist[-1:]], 0)
@@ -186,6 +206,9 @@ def generate(cfg: RefPlanConfig, p_start, pobs, dtype=torch.float64,
     perm = tuple(range(1, ds.dim())) + (0,)
     pr = ds.permute(perm).reshape(*lead, 2 * na, -1)
     prd = dsv.permute(perm).reshape(*lead, 2 * na, -1)
+    if return_raw:
+        return RefTraj(pr, prd), (raw_pos[:cfg.loop_size],
+                                  raw_vel[:cfg.loop_size])
     return RefTraj(pr, prd)
 
 

@@ -24,6 +24,9 @@ form, as in the JAX package:
   (`torch.linalg.inv_ex`), the physics by `wholebody.step_batch(backend=
   "xla")`, the step-fused IPM on torch.linalg.
 
+`run_batch` also runs the plant with stick-slip contact (`stiction`) and
+under per-lane trunk force pulses (`push`), as the JAX package's does.
+
 With `est_cfg` every loop runs estimation in the loop
 (`srbx_torch.estimation.pipeline`): the controller sees the sensor model's
 readings through kinematic odometry or the KF, never the truth, and the
@@ -125,15 +128,14 @@ def _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype=None):
 
 
 def _init_lanes(motion_cfg, loop, model, a0_l, dtype, stiction=False):
-    """Per-lane crouch start: sim state, agent state with the stand
-    planner armed, MPC carry."""
-    if stiction:
-        raise NotImplementedError(
-            "srbx_torch does not port the stick-slip contact model")
+    """Per-lane crouch start: sim state (with stiction its contact state,
+    anchored at the toes), agent state with the stand planner armed, MPC
+    carry."""
     bsz = a0_l.shape[0]
     q0 = wb.default_crouch(model, dtype, a0_l.device).repeat(bsz, 1)
     q0 = torch.cat([q0[:, 0:2] + a0_l.to(dtype), q0[:, 2:]], 1)
-    sim = wb.SimState(q0, torch.zeros_like(q0))
+    sim = wb.SimState(q0, torch.zeros_like(q0),
+                      wb.init_contact_state(model, q0) if stiction else None)
     ast = agent_mod.init(motion_cfg, model, q0, dtype)
     ast = ast._replace(planner=ast.planner._replace(
         stand_from=q0[:, 0:3],
@@ -178,13 +180,26 @@ def _sim_backend(backend):
     return "xla" if backend == "xla" else "fused"
 
 
-def _physics(sim_cfg, model, sims, tau, backend, d_b, est_cfg):
-    """The plant's tick. Without estimation the controller's D (at the true
-    q) is the first substep's; with it the controller's D was evaluated at
-    q_hat, so the plant evaluates its own."""
+def _physics(sim_cfg, model, sims, tau, backend, d_b, est_cfg,
+             base_force=None):
+    """The plant's tick, under base_force (B, 3) when given. Without
+    estimation the controller's D (at the true q) is the first substep's;
+    with it the controller's D was evaluated at q_hat, so the plant
+    evaluates its own."""
     return wb.step_batch(sim_cfg, model, sims, tau,
-                         backend=_sim_backend(backend),
+                         backend=_sim_backend(backend), base_force=base_force,
                          d0=d_b if est_cfg is None else None)
+
+
+def _push_force(push, t, dtype):
+    """The trunk forces (B, 3) of push = (force, start, duration) at trot
+    tick t: each lane's force while start <= t < start + duration, else
+    zero; None without push."""
+    if push is None:
+        return None
+    force, start, dur = push
+    on = (t >= start) & (t < start + dur)
+    return force * on[:, None].to(dtype)
 
 
 def _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims,
@@ -216,9 +231,12 @@ class DomainOut(NamedTuple):
 
 
 def _trot_domain(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims,
-                 asts, backend, ll_reduced, est_cfg=None, ests=None):
-    """One trot domain's LL ticks after its NMPC. Returns (sims, asts,
-    ests, DomainOut)."""
+                 asts, backend, ll_reduced, est_cfg=None, ests=None,
+                 push=None, dom_idx=0):
+    """One trot domain's LL ticks after its NMPC; push pulses count trot
+    ticks from the first domain's start (domain dom_idx's tick k is
+    dom_idx * ticks_per_domain + k). Returns (sims, asts, ests,
+    DomainOut)."""
     com, llok, taumax, errsq = [], [], [], []
     trot_dom_ticks = float(motion_cfg.trot_dom_ticks)
     for k in range(loop.ticks_per_domain):
@@ -235,7 +253,9 @@ def _trot_domain(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims,
         asts = asts._replace(mpc_available=asts.mpc_available
                              | (k >= loop.mpc_latency_ticks))
         sims = _physics(sim_cfg, model, sims, ll_outs.tau, backend, d_b,
-                        est_cfg)
+                        est_cfg, _push_force(
+                            push, dom_idx * loop.ticks_per_domain + k,
+                            qs.dtype))
         com.append(sims.q[:, 0:3])
         llok.append(ll_outs.qp_converged)
         taumax.append(ll_outs.tau.abs().amax(-1))
@@ -274,13 +294,8 @@ def _nmpc(mpc_cfg, qp_cfg, model, mcarries, qs, qds, contact_ind, pr, prd,
         agent_circle_eps=agent_circle_eps)
 
 
-def _check_options(mpc_cfg, backend, stiction=False, push=None):
+def _check_options(mpc_cfg, backend):
     """Raise on what the port does not run."""
-    unported = {"stiction": stiction, "push": push is not None}
-    if any(unported.values()):
-        raise NotImplementedError(
-            "srbx_torch's batched loops run without stiction and pushes; not "
-            f"{[k for k, v in unported.items() if v]} (ROADMAP M7 e)")
     if backend == "lanes":
         raise NotImplementedError(
             "the pure-JAX 'lanes' backend is left out of srbx_torch "
@@ -338,24 +353,39 @@ def run_batch(
     the result carries `est_rmse` (B, 2): the RMSE of the base position
     (m) and velocity (m/s) estimates over the trot ticks. est_key: the
     noise key (`srbx_torch.utils.prng.key`, or the JAX package's raw key);
-    None means key 0. stiction and push raise NotImplementedError.
+    None means key 0.
+
+    stiction=True runs the plant with the stick-slip contact model, every
+    toe anchored where it starts; the result's `sim.con.slip` (B, 4) is
+    each toe's cumulative slip. push: optional (force (B, 3), start_tick
+    (B,), duration_ticks (B,)), per-lane trunk force pulses (the
+    reference's disturbance generator, `src/A1_Sim.cpp:84-107`): a lane's
+    force acts on its trunk during the trot ticks t with start <= t <
+    start + duration, t counting trot ticks from the first domain's start
+    (the stand phase is not counted).
     """
-    _check_options(mpc_cfg, backend, stiction, push)
+    _check_options(mpc_cfg, backend)
     device, (pr_agent, prd_agent, agent_initial, pobs_real) = _on_device(
         device, dtype, pr_agent, prd_agent, agent_initial, pobs_real)
+    if push is not None:
+        force, start, dur = push
+        push = (torch.as_tensor(force).to(device=device, dtype=dtype),
+                torch.as_tensor(start).to(device=device, dtype=torch.int64),
+                torch.as_tensor(dur).to(device=device, dtype=torch.int64))
     ll_qp_cfg = _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype)
     with qp_batch.full_f32_products():
         return _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg,
                     loop, model, pr_agent, prd_agent, agent_initial,
-                    pobs_real, dtype, backend, ll_reduced, est_cfg, est_key)
+                    pobs_real, dtype, backend, ll_reduced, est_cfg, est_key,
+                    stiction, push)
 
 
 def _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop, model,
          pr_agent, prd_agent, agent_initial, pobs_real, dtype, backend,
-         ll_reduced, est_cfg, est_key):
+         ll_reduced, est_cfg, est_key, stiction=False, push=None):
     """run_batch's stand phase and trot domains, on checked inputs."""
     sims, asts, mcarries = _init_lanes(motion_cfg, loop, model, agent_initial,
-                                       dtype)
+                                       dtype, stiction)
     ests = (_init_ests(est_cfg, model, sims, est_key)
             if est_cfg is not None else None)
     sims, asts, ests = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg,
@@ -365,14 +395,14 @@ def _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop, model,
     ok_cnt = torch.zeros(agent_initial.shape[0], dtype=torch.int32,
                          device=agent_initial.device)
     com_hist, stats, errsq = [], [], []
-    for _ in range(loop.n_domains):
+    for dom_idx in range(loop.n_domains):
         qs, qds = _state_view(est_cfg, sims, ests)
         out, asts = _replan(mpc_cfg, qp_cfg, model, mcarries, qs, qds, asts,
                             pr_agent, prd_agent, agent_initial, pobs_real,
                             backend)
         sims, asts, ests, dom = _trot_domain(
             ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims, asts,
-            backend, ll_reduced, est_cfg, ests)
+            backend, ll_reduced, est_cfg, ests, push, dom_idx)
         mcarries = out.carry
         ok_cnt = ok_cnt + out.qp_converged.to(torch.int32)
         com_hist.append(dom.com)

@@ -19,14 +19,21 @@ only in distribution:
 * `uniform` keeps the top mantissa bits of the word, ORs them into the
   bits of 1.0 and subtracts 1 (`jax._src.random._uniform`); `normal` is
   sqrt(2) erfinv(u) with u uniform on [nextafter(-1, 0), 1)
-  (`_normal_real`).
+  (`_normal_real`); `randint` folds two 32-bit words into its range by
+  uint32 arithmetic (`_randint`).
 
 The uint32 words are held in int64 and masked to 32 bits after every
-addition. `split` and the random bits are bitwise jax's. `uniform` and
-`normal` follow XLA's arithmetic: the scaling of a uniform draw as one
-fused multiply-add, and XLA's own erf_inv and log1p (`erfinv`, `log1p`
-here), so that they stay within a few ulps of jax's (the rounding of
-`torch.log` against XLA's log remains).
+addition. `split`, the random bits and `randint` are bitwise jax's, on any
+device. `uniform` and `normal` follow XLA's arithmetic: the scaling of a
+uniform draw as one fused multiply-add, and XLA's own erf_inv and log1p
+(`erfinv`, `log1p` here), so that they stay within a few ulps of jax's
+(the rounding of `torch.log` against XLA's log remains); `uniform` is
+bitwise jax's. Those fused multiply-adds are `torch.addcmul`, which the
+CPU evaluates as jax's CPU build does; CUDA's own contraction of it is not
+promised to. So `uniform` and `normal` (set-up draws: fields, pulses,
+kicks) hash and scale on the CPU and return on the key's device, whatever
+that is. `normals`, the sensors' noise of every tick, runs on its keys'
+device: on the card within a few ulps of jax's.
 """
 
 from __future__ import annotations
@@ -222,6 +229,15 @@ def _normal_from(one_two, dtype):
     return erfinv(u) * float(t(math.sqrt(2.0)))
 
 
+def _drawn_on_the_cpu(draw):
+    """A float draw computed from the key's CPU copy and returned on the
+    key's device (see the module's docstring)."""
+    @functools.wraps(draw)
+    def on_cpu(key, *args, **kw):
+        return draw(key.cpu(), *args, **kw).to(key.device)
+    return on_cpu
+
+
 @functools.lru_cache(maxsize=64)
 def _layout(sizes, device):
     """Which draw each element belongs to, and its counter within it."""
@@ -231,6 +247,7 @@ def _layout(sizes, device):
             torch.from_numpy(idx).to(torch.int64).to(device))
 
 
+@_drawn_on_the_cpu
 def uniform(key, shape=(), dtype=torch.float64, lo=0.0, hi=1.0):
     """(..., 2) keys -> (..., *shape): `jax.random.uniform(key, shape,
     dtype, lo, hi)` for every leading index."""
@@ -241,6 +258,50 @@ def uniform(key, shape=(), dtype=torch.float64, lo=0.0, hi=1.0):
     return _scale(one_two, dtype, lo, hi).reshape(key.shape[:-1] + shape)
 
 
+def _wrap32(x):
+    """int64 holding any integer -> the int32 with its low 32 bits."""
+    x = x & _MASK
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def randint(key, shape, minval, maxval, dtype=torch.int32):
+    """(..., 2) keys -> (..., *shape) int32: `jax.random.randint(key, shape,
+    minval, maxval, jnp.int32)` for every leading index, bitwise.
+
+    jax splits the key in two, draws a high and a low 32-bit word per
+    element (one from each subkey) and folds them into [minval, maxval) by
+    uint32 arithmetic, every product and sum wrapped to 32 bits as there:
+    ((hi % span) m + lo % span) % span with m = (2^16 % span)^2 % span
+    (which wraps for spans above 2^16, so that m is not 2^32 % span then).
+    A span of 0 or less gives minval. minval and maxval are ints or int
+    tensors that broadcast against shape, within int32."""
+    if dtype != torch.int32:
+        raise TypeError(f"randint draws int32 (jax's default without x64), "
+                        f"not {dtype}")
+    shape = tuple(shape)
+    lo_v = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
+    hi_v = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    for v in (lo_v, hi_v):
+        if bool(((v < -(1 << 31)) | (v >= 1 << 31)).any()):
+            raise ValueError("randint's bounds must lie within int32")
+    k1, k2 = split(key).unbind(-2)
+    n = math.prod(shape)
+    counts = _counters(n, key.device)
+
+    def word(k):
+        b1, b2 = threefry2x32(k[..., 0:1], k[..., 1:2], *counts)
+        return (b1 ^ b2).reshape(key.shape[:-1] + shape)
+
+    higher, lower = word(k1), word(k2)
+    span = torch.where(hi_v <= lo_v, 1, (hi_v - lo_v) & _MASK)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    offset = ((higher % span) * mult) & _MASK
+    offset = ((offset + lower % span) & _MASK) % span
+    return _wrap32(lo_v + _wrap32(offset).to(torch.int64))
+
+
+@_drawn_on_the_cpu
 def normal(key, shape=(), dtype=torch.float64):
     """(..., 2) keys -> (..., *shape): `jax.random.normal(key, shape,
     dtype)` for every leading index."""

@@ -3,7 +3,7 @@ JAX package's `srbx/eval/campaign.py`, in float64 on the CPU.
 
 * gait tables (`srbx_torch.gait`) against `srbx.gait`, exactly;
 * `sample_obstacles`: shapes, ranges, the clamp, and the same fields from
-  the same generator seed;
+  the same key;
 * the planner's scenario axis: 3 fields in one rollout against per-field
   `refplan.generate` (1e-12) and JAX `vmap(generate)` (1e-12, the bound of
   tests/test_torch_ocp.py::test_refplan_generate);
@@ -20,8 +20,9 @@ JAX package's `srbx/eval/campaign.py`, in float64 on the CPU.
   (BREAKDOWN below), held after the stand domains to the JAX package's own
   closed-loop bound.
 
-The JAX package's obstacle fields, which the port cannot draw (`jax.random`
-bits), are committed in `tests/data/campaign_fields_jax.npz`:
+The JAX package's obstacle fields are committed in
+`tests/data/campaign_fields_jax.npz` (the port draws them too, through
+`srbx_torch.utils.prng`: tests/test_torch_disturbance.py):
 "key0.*", float32, `sample_obstacles(jax.random.split(jax.random.key(0))[0],
 1024, 20, 0.6)` with x64 off (the A/B runner's); "key1234.*", float64,
 `sample_obstacles(jax.random.split(jax.random.key(1234))[0], 32, 20, 0.6)`
@@ -47,6 +48,7 @@ from srbx.eval import campaign as jcampaign
 from srbx_torch import gait, refplan
 from srbx_torch.config import Gait, MpcConfig
 from srbx_torch.eval import campaign, run_campaign_ab
+from srbx_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -124,11 +126,11 @@ def test_contact_table_matches_jax():
 def test_sample_obstacles_distribution_and_clamp():
     """As tests/test_campaign.py::test_sample_obstacles_distribution_and_
     clamp: nominal in [0,9] x [-2,2], real within the uncertainty of it and
-    clamped to [1,9] x [-3,3]; the same seed gives the same fields, on the
+    clamped to [1,9] x [-3,3]; the same key gives the same fields, on the
     device asked for."""
     s, n, u = 64, 20, 0.6
-    pobs, real = campaign.sample_obstacles(torch.Generator().manual_seed(3),
-                                           s, n, u, device="cpu")
+    pobs, real = campaign.sample_obstacles(prng.key(3, "cpu"), s, n, u,
+                                           device="cpu")
     assert pobs.shape == real.shape == (s, 2, n)
     assert pobs.dtype == real.dtype == torch.float64
     assert pobs.device.type == real.device.type == "cpu"
@@ -144,20 +146,21 @@ def test_sample_obstacles_distribution_and_clamp():
     assert (r[:, 0] == 1.0).any()          # the clamp binds at x = 1
     # both coordinates spread over their ranges
     assert p[:, 0].min() < 1.0 and p[:, 0].max() > 8.0
-    again = campaign.sample_obstacles(torch.Generator().manual_seed(3), s,
-                                      n, u, device="cpu")
-    other = campaign.sample_obstacles(torch.Generator().manual_seed(4), s,
-                                      n, u, device="cpu")
+    again = campaign.sample_obstacles(prng.key(3, "cpu"), s, n, u,
+                                      device="cpu")
+    other = campaign.sample_obstacles(prng.key(4, "cpu"), s, n, u,
+                                      device="cpu")
     assert torch.equal(again[0], pobs) and torch.equal(again[1], real)
     assert not torch.equal(other[0], pobs)
-    f32 = campaign.sample_obstacles(torch.Generator().manual_seed(3), 2, n,
+    f32 = campaign.sample_obstacles(prng.key(3, "cpu"), 2, n,
                                     dtype=torch.float32, device="cpu")
     assert f32[0].dtype == f32[1].dtype == torch.float32
 
 
 def test_committed_fields_are_jax_shaped():
     """The committed JAX fields have the runner's and the golden's shapes,
-    types and ranges, and the runner reads the key-0 ones."""
+    types and ranges, and the port draws the key-0 ones from the JAX
+    runner's own raw key."""
     with np.load(FIELDS) as f:
         fields = dict(f)
     for key, s, dtype in (("key0", 1024, np.float32),
@@ -167,7 +170,9 @@ def test_committed_fields_are_jax_shaped():
         assert p.dtype == r.dtype == dtype
         assert (r[:, 0] >= 1).all() and (r[:, 0] <= 9).all()
         assert (np.abs(r[:, 1] - p[:, 1]) <= 0.6 + 1e-6).all()
-    p, r = run_campaign_ab.jax_fields("key0", torch.float32, "cpu")
+    raw = np.asarray(jax.random.split(jax.random.PRNGKey(0))[0])
+    p, r = campaign.sample_obstacles(raw, 1024, 20, 0.6, torch.float32,
+                                     "cpu")
     assert p.dtype == torch.float32
     np.testing.assert_array_equal(r.numpy(), fields["key0.pobs_real"])
 
@@ -310,9 +315,11 @@ def test_campaign_fused_matches_jax_fixture(fx, lanes_ref, form):
 
 
 def test_disturbance_draws_from_the_generator():
-    """With disturbance > 0 the kicks come from the generator: the same
-    seed gives the same run, another seed another; without a generator the
-    core raises."""
+    """With disturbance > 0 the kicks come from the run's key (the JAX
+    package's draws, held to its fixture in test_torch_disturbance.py): the
+    same key gives the same run, another key another; without a key the
+    core raises. (A torch.Generator drew them until the JAX package's
+    streams were reproduced.)"""
     cfg = MpcConfig(use_sqp=False, **ELIDED)
     camp = campaign.CampaignConfig(n_agents=2, n_domains=2, disturbance=0.2)
     ref_cfg = refplan.two_agent_config(loop_size=400)
@@ -321,14 +328,14 @@ def test_disturbance_draws_from_the_generator():
     def run(seed):
         return campaign.run_campaign_batch(
             cfg, run_campaign_ab.QP_CFG, camp, ref_cfg, p,
-            torch.Generator().manual_seed(seed), 1, device="cpu")
+            prng.key(seed, "cpu"), 1, device="cpu")
 
     a, b, c = run(5), run(5), run(6)
     assert torch.equal(a.traj, b.traj) and not torch.equal(a.traj, c.traj)
     assert a.traj.shape == (1, 2, 2, 2) and torch.isfinite(a.traj).all()
-    pobs, real = campaign.sample_obstacles(torch.Generator().manual_seed(5),
-                                           1, 20, device="cpu")
-    with pytest.raises(ValueError, match="generator"):
+    pobs, real = campaign.sample_obstacles(prng.key(5, "cpu"), 1, 20,
+                                           device="cpu")
+    with pytest.raises(ValueError, match="key"):
         campaign._run_campaign_batch_core(cfg, run_campaign_ab.QP_CFG, camp,
                                           ref_cfg, p, pobs, real, None,
                                           "fused")
@@ -336,7 +343,8 @@ def test_disturbance_draws_from_the_generator():
 
 def test_runner_on_the_cpu(tmp_path):
     """The A/B runner at a tiny size on the CPU: both legs, its JSON, the
-    timing keys; without a card and without device="cpu" it raises."""
+    timing keys, the fields' key; without a card and without device="cpu"
+    it raises."""
     out = tmp_path / "ab.json"
     summ, res = run_campaign_ab.main(2, 2, seed=1, device="cpu",
                                      loop_size=200, out=out)
@@ -348,8 +356,9 @@ def test_runner_on_the_cpu(tmp_path):
         assert summ[leg]["planner_s"] + summ[leg]["loop_s"] <= \
             summ[leg]["wall_s_steady"]
     assert summ["device"] == "cpu" and summ["dtype"] == "float32"
-    with pytest.raises(ValueError, match="seed"):
-        run_campaign_ab.main(2, 2, device="cpu", out=out)
+    # the fields are drawn as the JAX runner draws them, from key(seed)
+    assert summ["fields"] == "campaign.sample_obstacles on split(jax key " \
+        "1)[0]"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_campaign_ab.main(2, 2, seed=1, out=out)

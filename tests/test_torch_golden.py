@@ -12,8 +12,9 @@ kernels K3a and K3b on the CPU) and "xla" (torch.linalg), and its first 4
 lanes must meet the golden's own bound, 1e-4 on states and alpha_com.
 
 The template_campaign golden is the JAX package's `run_campaign_batch` with
-backend "xla" in float64 on the CPU: 32 scenarios of key 1234 (their fields
-are committed in `tests/data/campaign_fields_jax.npz`), 2 agents, 8
+backend "xla" in float64 on the CPU: 32 scenarios of key 1234 (the port
+draws their fields from the same key: `campaign.sample_obstacles` on
+`split(key(1234))[0]`), 2 agents, 8
 domains, the reference-shape `MpcConfig(use_sqp=True, sqp_iters=2)`,
 `QpConfig()` and `loop_size` 4000. The port runs it with backend "xla"
 and "pallas" (slow: 10 and 30 s on the CPU; the chip smoke runs "pallas"
@@ -38,9 +39,10 @@ import torch
 
 from srbx_torch import mpc, mpc_batch, refplan
 from srbx_torch.config import MpcConfig, QpConfig
-from srbx_torch.eval import campaign, run_campaign_ab
+from srbx_torch.eval import campaign
 from srbx_torch.ocp import default_footholds
 from srbx_torch.ops import qp_batch
+from srbx_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -112,8 +114,9 @@ def test_golden_template_campaign(backend, monkeypatch):
         return sol
 
     monkeypatch.setattr(qp_batch, "solve", watched)
-    pobs, pobs_real = run_campaign_ab.jax_fields("key1234", torch.float64,
-                                                 "cpu")
+    pobs, pobs_real = campaign.sample_obstacles(
+        prng.split(prng.key(1234, "cpu"))[0], 32, 20, 0.6, torch.float64,
+        "cpu")
     res = campaign._run_campaign_batch_core(
         MpcConfig(use_sqp=True, sqp_iters=2), QpConfig(),
         campaign.CampaignConfig(n_agents=2, n_domains=8),

@@ -27,6 +27,7 @@ from srbx.estimation import pipeline as jpipeline
 from srbx.eval import campaign as jcampaign
 from srbx.ops import qp_batch as jqp_batch
 from srbx.ops import qp_fused as jqp_fused
+from srbx.models import rbd as jrbd
 from srbx.ops import spd as jspd
 from srbx.sim import closedloop as jclosedloop
 from srbx.sim import sensors as jsensors
@@ -34,7 +35,7 @@ from srbx.sim import wholebody as jwb
 from srbx_torch import agent, config, convert, motion, mpc, mpc_batch, refplan
 from srbx_torch.estimation import contact, pipeline
 from srbx_torch.eval import campaign
-from srbx_torch.models import a1
+from srbx_torch.models import a1, rbd
 from srbx_torch.ocp import default_footholds
 from srbx_torch.ops import _build, qp_batch, qp_fused, spd
 from srbx_torch.sim import closedloop, sensors, wholebody as wb
@@ -49,9 +50,14 @@ MODULES = sorted(
     for p in (ROOT / "srbx_torch").rglob("*.py"))
 
 
+# the port's own scripts, imported (not run) with the package
+SCRIPTS = [ROOT / "scripts" / name for name in (
+    "torch_campaign_push.py", "torch_clf_loop.py", "torch_push_compare.py")]
+
+
 def test_import_pulls_in_no_jax():
-    """Importing every module of srbx_torch loads neither jax nor any
-    module of the JAX package `srbx`."""
+    """Importing every module of srbx_torch, and the port's scripts, loads
+    neither jax nor any module of the JAX package `srbx`."""
     assert {"srbx_torch.sim.closedloop", "srbx_torch.ops.spd",
             "srbx_torch.models.rbd", "srbx_torch.lowlevel", "srbx_torch.gait",
             "srbx_torch.eval", "srbx_torch.eval.campaign",
@@ -60,9 +66,13 @@ def test_import_pulls_in_no_jax():
             "srbx_torch.eval.run_team", "srbx_torch.estimation.pipeline",
             "srbx_torch.estimation.kalman", "srbx_torch.estimation.kinest",
             "srbx_torch.sim.sensors", "srbx_torch.utils.prng"} <= set(MODULES)
-    code = ("import importlib, sys\n"
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for path in {[str(p) for p in SCRIPTS]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('s', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "print(sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'srbx')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -120,10 +130,12 @@ def _default(value):
     (wb.step_batch, jwb.step_batch),
     (closedloop.run_batch_event, jclosedloop.run_batch_event),
     (pipeline.update, jpipeline.update), (sensors.read, jsensors.read),
+    (campaign.run_campaign_chunked, jcampaign.run_campaign_chunked),
 ], ids=["run_nmpc_batch", "qp_batch_solve", "run_batch", "qp_fused_solve",
         "solve_lanes_last", "spd_solve", "spd_inverse", "run_campaign_batch",
         "run_campaign_batch_core", "run_team_batch", "step_batch",
-        "run_batch_event", "pipeline_update", "sensors_read"])
+        "run_batch_event", "pipeline_update", "sensors_read",
+        "run_campaign_chunked"])
 def test_entry_points_keep_the_jax_defaults(mine, theirs):
     """Every parameter that a port entry point shares with its JAX
     counterpart has the same default, so that a call ported from the JAX
@@ -136,24 +148,30 @@ def test_entry_points_keep_the_jax_defaults(mine, theirs):
         {n: _default(ref[n].default) for n in shared}
 
 
-@pytest.mark.parametrize("mine,theirs,ours_only,theirs_only", [
+@pytest.mark.parametrize("mine,theirs,ours_only,theirs_only,key", [
     (campaign.run_campaign_batch, jcampaign.run_campaign_batch,
-     ["generator", "dtype", "device"], ["key", "tile"]),
+     ["dtype", "device"], ["tile"], "key"),
     (campaign._run_campaign_batch_core, jcampaign._run_campaign_batch_core,
-     ["generator"], ["k_run", "tile"]),
-], ids=["run_campaign_batch", "run_campaign_batch_core"])
+     [], ["tile"], "k_run"),
+    (campaign.run_campaign_chunked, jcampaign.run_campaign_chunked,
+     ["dtype", "device"], [], "key"),
+], ids=["run_campaign_batch", "run_campaign_batch_core",
+        "run_campaign_chunked"])
 def test_campaign_signatures_differ_only_as_documented(mine, theirs,
                                                        ours_only,
-                                                       theirs_only):
-    """The campaign entries take the JAX arguments in the JAX order, with a
-    torch.Generator where JAX takes a key and without the TPU-only tile;
-    run_campaign_batch adds the run's dtype and device."""
+                                                       theirs_only, key):
+    """The campaign entries take the JAX arguments in the JAX order, the
+    JAX key (`key`, the core's `k_run`) in its place, without the TPU-only
+    tile; run_campaign_batch and run_campaign_chunked add the run's dtype
+    and device at the end. A torch.Generator took the key's place until
+    the JAX package's streams were reproduced."""
     ours = list(inspect.signature(mine).parameters)
     ref = list(inspect.signature(theirs).parameters)
     assert [n for n in ours if n not in ref] == ours_only
     assert [n for n in ref if n not in ours] == theirs_only
     assert [n for n in ours if n in ref] == [n for n in ref if n in ours]
-    assert ours.index(ours_only[0]) == ref.index(theirs_only[0])
+    assert ours.index(key) == ref.index(key)
+    assert ours[len(ours) - len(ours_only):] == ours_only
 
 
 def test_run_team_batch_signature_differs_only_as_documented():
@@ -166,6 +184,62 @@ def test_run_team_batch_signature_differs_only_as_documented():
     assert [n for n in ours if n in ref] == [n for n in ref if n != "tile"]
 
 
+@pytest.mark.parametrize("mine,theirs,ours_only,theirs_only", [
+    (spd.solve, jspd.solve, [], ["backend", "tile", "interpret"]),
+    (spd.inverse, jspd.inverse, [], ["backend", "tile", "interpret"]),
+    (rbd.forward_dynamics_batch, jrbd.forward_dynamics_batch, [],
+     ["backend", "tile"]),
+    (refplan.generate, jrefplan.generate, ["device"], []),
+    (wb.step_batch, jwb.step_batch, [], ["tile"]),
+], ids=["spd_solve", "spd_inverse", "forward_dynamics_batch", "generate",
+        "step_batch"])
+def test_dropped_parameters_are_documented(mine, theirs, ours_only,
+                                           theirs_only):
+    """The parameters a port entry point drops from its JAX counterpart, and
+    each named in its docstring (or its module's) as not taken: tile and
+    interpret are the TPU kernels', the backend of spd and
+    forward_dynamics_batch picks a TPU kernel or jax.scipy's Cholesky (the
+    port runs K2a and K2b on the card). The rest keep the JAX order;
+    refplan.generate adds device and takes return_raw, step_batch
+    base_force."""
+    ours = list(inspect.signature(mine).parameters)
+    ref = list(inspect.signature(theirs).parameters)
+    assert [n for n in ref if n not in ours] == theirs_only
+    assert [n for n in ours if n not in ref] == ours_only == ours[
+        len(ours) - len(ours_only):]
+    assert [n for n in ours if n in ref] == [n for n in ref if n in ours]
+    doc = (mine.__doc__ or "") + (sys.modules[mine.__module__].__doc__ or "")
+    for name in theirs_only:
+        assert f"`{name}`" in doc or f" {name}" in doc, name
+
+
+def test_generate_return_raw_is_the_jax_packages():
+    """refplan.generate(return_raw=True) adds every step's pre-step state,
+    as the JAX package does, and leaves the reference as it was."""
+    import jax
+    import jax.numpy as jnp
+
+    cfg = refplan.two_agent_config(loop_size=130)
+    p0 = np.array([0.0, 0.5, 0.0, -0.5])
+    pobs = np.stack([np.linspace(1.0, 4.0, 20), np.linspace(-1, 1, 20)])
+    ref, (pos, vel) = refplan.generate(cfg, torch.tensor(p0),
+                                       torch.tensor(pobs), return_raw=True,
+                                       device="cpu")
+    plain = refplan.generate(cfg, torch.tensor(p0), torch.tensor(pobs),
+                             device="cpu")
+    assert torch.equal(ref.pr, plain.pr) and torch.equal(ref.prd, plain.prd)
+    with jax.enable_x64(True):
+        jref, (jpos, jvel) = jax.jit(lambda p, o: jrefplan.generate(
+            jrefplan.two_agent_config(loop_size=130), p, o,
+            return_raw=True))(jnp.asarray(p0), jnp.asarray(pobs))
+        jpos, jvel = np.asarray(jpos), np.asarray(jvel)
+    assert pos.shape == jpos.shape == (130, 2, 2)
+    np.testing.assert_allclose(pos.numpy(), jpos, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(vel.numpy(), jvel, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ref.pr.numpy(), np.asarray(jref.pr), rtol=0,
+                               atol=1e-12)
+
+
 def test_entry_points_default_to_the_card():
     """device=None means the CUDA card: without one, the call fails rather
     than running on the CPU."""
@@ -174,13 +248,12 @@ def test_entry_points_default_to_the_card():
              lambda: refplan.resolve_matrices(cfg),
              lambda: refplan.generate(cfg, torch.zeros(4),
                                       torch.zeros(2, 20)),
-             lambda: campaign.sample_obstacles(
-                 torch.Generator().manual_seed(0), 2, 20),
+             lambda: campaign.sample_obstacles(prng.key(0, "cpu"), 2, 20),
              lambda: campaign.run_campaign_batch(
                  MpcConfig(use_sqp=False, condensed=True, elide_box_rows=True,
                            elide_simplex=True), QpConfig(),
                  campaign.CampaignConfig(n_domains=1), cfg, torch.zeros(4),
-                 torch.Generator().manual_seed(0), 1),
+                 prng.key(0, "cpu"), 1),
              lambda: closedloop.run_team_batch(
                  *_loop_args()[:7], np.zeros((1, 4, 2, 10)),
                  np.zeros((1, 4, 2, 10)), np.zeros((1, 4, 2)),
@@ -377,23 +450,29 @@ def _loop_args(bsz=2):
 @pytest.mark.parametrize("change", [
     dict(backend="xla"), dict(ll_reduced=True),
     dict(est_cfg=pipeline.EstConfig()),
-    dict(stiction=True), dict(push=(None, None, None)),
+    dict(stiction=True), dict(push=(np.array([[30.0, 0.0, 0.0],
+                                              [0.0, -60.0, 0.0]]),
+                                    np.zeros(2, np.int32),
+                                    np.ones(2, np.int32))),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False)),
     dict(mpc_cfg=MpcConfig(use_sqp=True, condensed=False, horizon=5)),
 ], ids=["xla", "ll_reduced", "est_cfg", "stiction", "push", "uncondensed",
         "unbuilt_shape"])
 def test_run_batch_unported_options_raise(change):
     """The options of the JAX package's run_batch that the port does not run
-    raise NotImplementedError: stiction, pushes, and on backend "fused" an
-    NMPC whose QPs the fused kernels are not built for (a horizon of 5 makes
-    (n, me) = (47, 35)), before any tick. Backend "xla", the reduced LL
-    build, the uncondensed NMPC on "fused" (K1b at n 41, me 28, built since)
-    and estimation in the loop raised too until they were ported; they now
-    run the loop (one stand and one trot tick) to finite states, with
-    estimation an est_rmse of each lane."""
+    raise NotImplementedError before any tick: on backend "fused" an NMPC
+    whose QPs the fused kernels are not built for (a horizon of 5 makes
+    (n, me) = (47, 35)). Backend "xla", the reduced LL build, the
+    uncondensed NMPC on "fused" (K1b at n 41, me 28, built since),
+    estimation in the loop, stick-slip contact and trunk pushes raised too
+    until they were ported; they now run the loop (one stand and one trot
+    tick) to finite states, with estimation an est_rmse of each lane, with
+    stiction each toe's slip, with a push the lanes' pulses in the trot
+    tick."""
     args = list(_loop_args())
     match = r"\(47, 35\)" if "mpc_cfg" in change else None
-    ported = (set(change) <= {"backend", "ll_reduced", "mpc_cfg", "est_cfg"}
+    ported = (set(change) <= {"backend", "ll_reduced", "mpc_cfg", "est_cfg",
+                              "stiction", "push"}
               and change.get("mpc_cfg", MpcConfig()).horizon == 4)
     if "mpc_cfg" in change:
         args[0] = change.pop("mpc_cfg")
@@ -402,9 +481,19 @@ def test_run_batch_unported_options_raise(change):
         assert res.com_hist.shape == (2, 1, 1, 3)
         assert torch.isfinite(res.sim.q).all() and res.qp_ok.min() == 1.0
         assert (res.est_rmse is None) == ("est_cfg" not in change)
+        assert (res.sim.con is None) == ("stiction" not in change)
         if "est_cfg" in change:
             assert res.est_rmse.shape == (2, 2)
             assert torch.isfinite(res.est_rmse).all()
+        if "stiction" in change:
+            assert res.sim.con.slip.shape == (2, 4)
+            assert res.sim.con.anchor.shape == (2, 4, 2)
+        if "push" in change:
+            calm = closedloop.run_batch(*args, device="cpu")
+            dv = (res.sim.qd[:, 0:2] - calm.sim.qd[:, 0:2]).numpy()
+            force = change["push"][0][:, 0:2]
+            # the pulse accelerates each trunk along its own force
+            assert ((dv * force).sum(1) > 0).all()
         return
     with pytest.raises(NotImplementedError, match=match):
         closedloop.run_batch(*args, device="cpu", **change)
