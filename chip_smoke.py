@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Ten paths, each driven through the entry point a user calls:
+Eleven paths, each driven through the entry point a user calls:
 
 * the batched CBF-NMPC control cycle (`srbx_torch.mpc_batch.run_nmpc_batch`
   on its lanes-last fused branch, kernel K1a) at the benchmark operating
@@ -12,7 +12,8 @@ Ten paths, each driven through the entry point a user calls:
 * the whole-body 1 kHz closed loop (`srbx_torch.sim.closedloop.run_batch`:
   the LL QP through kernel K1b, the SPD inverses through K2b, the physics
   solves through K2a, the NMPC at each domain boundary through K1a) at
-  B = 4096 lanes, float32: 300 stand-up ticks and 1 trot domain of 172;
+  B = 4096 lanes, float32: 100 stand-up ticks and the first 50 ticks of
+  1 trot domain;
 * the NMPC cycle on its generic branch at the reference shape
   (`run_nmpc_batch(backend="pallas", condensed=False)`: QPs of n 41, me 28,
   mi 92 and 112 through the step-fused batched IPM, with the Cholesky and
@@ -28,8 +29,8 @@ Ten paths, each driven through the entry point a user calls:
   (`srbx_torch.eval.run_team`, through `closedloop.run_team_batch`) at its
   production point: S 1024 scenarios x 4 agents = 4096 lanes, float32, the
   condensed lanes-last NMPC with the neighbour circle (K1a), the reduced LL
-  QP after 5 Ruiz sweeps (K1b at n 25 / me 12), K2a and K2b; 300 stand
-  ticks and the first 100 ticks of 1 domain;
+  QP after 5 Ruiz sweeps (K1b at n 25 / me 12), K2a and K2b; 100 stand
+  ticks and the first 50 ticks of 1 domain;
 * the NMPC cycle on backend "fused" off the benchmark's configuration
   (`run_nmpc_batch(backend="fused")`): uncondensed at the reference shape
   (K1b at n 41 / me 28, mi 92 and 112), condensed with the simplex rows
@@ -44,22 +45,30 @@ Ten paths, each driven through the entry point a user calls:
   odometry, the noise drawn from the JAX package's keys) at
   `scripts/campaign_wholebody.py`'s batch-r est configuration: B = 4096,
   float32, the condensed lanes-last NMPC (K1a), the reduced LL QP (K1b at
-  n 25 / me 12), K2a and K2b; 300 stand ticks and the first 100 ticks of
+  n 25 / me 12), K2a and K2b; 100 stand ticks and the first 50 ticks of
   1 domain;
 * the event-driven loop with estimation (`closedloop.run_batch_event`:
   per-lane contact-triggered domains, an HL poll every 20 ticks, a 20-tick
   latency) at `scripts/campaign_event.py`'s est configuration, B = 4096,
-  float32, the same kernels; 300 stand ticks and 250 trot ticks;
+  float32, the same kernels; 100 stand ticks and 200 trot ticks;
 * the whole-body loop under trunk pushes with stick-slip contact and the
   CLF row (`closedloop.run_batch(stiction=True, push=...)` with
   `LowLevelConfig(use_clf=True)`) at `scripts/campaign_push.py`'s
   configuration: B = 4096, float32, the QP-only condensed NMPC (K1a), the
   reduced LL QP (K1b at n 25 / me 12), K2a and K2b; every lane pushed at
   (0, 10, ..., 90)[lane % 10] N, the JAX script's key(7) azimuths, from
-  trot tick 10; 300 stand ticks and the first 100 ticks of 1 domain.
+  trot tick 10; 100 stand ticks and the first 50 ticks of 1 domain;
+* the MPC-less velocity-commanded gait WALK
+  (`closedloop.run_velocity_gait`: per-lane domains ended by the phase
+  overrun or touchdown, the ramped forward command, Raibert steps) at
+  `tests/test_wholebody.py`'s configuration: B = 4096, float32, the reduced
+  LL QP after 5 Ruiz sweeps (K1b at n 25 / me 12), K2a and K2b, no NMPC;
+  300 stand ticks and 250 WALK ticks; and every other gait of the entry
+  point (PACE, INPLACE_TROT, INPLACE_WALK, TAP, POSE) in float64 on 64
+  lanes.
 
-Phases, each printing JSON lines (14 runs after 11, before 12; 15, 16
-and 17 after 13):
+Phases, each printing JSON lines (14 runs after 11, before 12; 15 to 18
+after 13):
 
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
 2. build     - compile every CUDA source in srbx_torch/csrc with nvcc (one
@@ -85,10 +94,12 @@ and 17 after 13):
                test), K2a and K2b bitwise on the loop's mass and swing
                matrices;
                then K1b on 4093 mixed lanes as in phase 3;
-7. wholebody - run_batch at B = 4096 float32 (300 stand ticks, 1
-               domain): finite, COM height, exact
+7. wholebody - run_batch at B = 4096 float32 (100 stand ticks, the
+               first 50 of 1 domain): finite, COM height, exact
                launch counts, LL ticks/s; and the first 64 lanes in float64
-               through the kernels and through the plain versions;
+               through the kernels and through the plain versions (20
+               stand, 10 trot ticks: q and COM within 1e-9; in a side
+               process, its line after phase 13);
 7b. wholebody_uncondensed - run_batch as in 7 with bench_wholebody's
                default MpcConfig (uncondensed: K1b (41, 28) twice a
                domain): finite, COM height, exact launch counts by shape,
@@ -147,7 +158,8 @@ and 17 after 13):
                within 0.5 points, max |d tau| reported), 4093 mixed lanes
                as phase "mixed", and its ms per launch; (d) the team golden
                through K3a/K3b, K2a/K2b (backend "pallas", float64) at the
-               golden's bounds.
+               golden's bounds: its planner here, its loop in a side
+               process, its line after phase 16.
 
 14. nmpc_fused - (a) K1b at (41, 28) (mi 92, 112, 116) and (17, 4) (mi 28,
                48, 52, 92, 112, 116) on 4093 random well-conditioned QPs,
@@ -189,19 +201,38 @@ and 17 after 13):
                finite, standing, LL qp_ok >= 0.9; exact launch counts; LL
                ticks/s, slip p50 and max, success against magnitude (the
                push campaign's rule); a profile of 5 trot ticks (the card's
-               idle share); in a side process the first 64 lanes in
+               idle share); in the side processes the first 64 lanes in
                float64 through the kernels and the plain versions (10
                stand, 10 trot ticks, pulses from trot tick 2: q, COM and
                slip within 1e-9, equal qp_ok) and at the phase's depth
-               (slip against float32); in two others a CLF-on/CLF-off
-               pair without push or stiction, 64 lanes, in float64 at
+               (slip against float32), and a CLF-on/CLF-off pair
+               without push or stiction, 64 lanes, in float64 at
                scripts/campaign_clf.py's configuration (the COM distance
                beside docs/CLF_LOOP.json's 1.47e-7 m) and in float32 at
                the phase's (the LL qp_ok shares).
+18. velocity_gait - run_velocity_gait(WALK) at B = 4096 float32
+               (MotionConfig(fwd_speed=0.15), the JAX test's relaxed
+               solver): finite, COM z > 0.25 m over the WALK ticks and LL
+               qp_ok >= 0.95 on every lane, domains >= 2 on every lane,
+               every LL QP at (25, 12), exact launch counts (K1b once a
+               tick, K2a and K2b twice, no K1a or K3); LL ticks/s, the x
+               advance, a profile of 5 WALK ticks (the card's idle share);
+               in the side processes every gait (WALK, PACE, INPLACE_TROT,
+               INPLACE_WALK, TAP on "pallas", POSE; INPLACE_TROT and TAP
+               with the full build) in float64 on the first 64 lanes,
+               10 stand and 15 gait ticks, through the kernels and the
+               plain versions: q and COM within 1e-9, equal qp_ok and
+               domains, POSE's domains <= 1.
+
+The team golden's loop and the float64 runs of phases 7 and 15-18 (and
+the float32 CLF pair) go on in five side processes (SIDE_GROUPS), started
+after phase 13 and run beside phases 15 and 16, whose rates they slow;
+they end before phase 17, and a "side_processes" line gives each one's
+seconds. Phases 3-14, 17 and 18 run alone on the card.
 
 Then a {"kernels": [...]} line (K1b (41, 28), K1b (17, 4) and K1a above
 64 rows on rows of their own; each row's launches by path include phases
-15-17's) and, last, {"ok": true, "device": {...}}.
+15-18's) and, last, {"ok": true, "device": {...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or outside the repository, it exits non-zero and prints no result.
 """
@@ -230,19 +261,28 @@ REPS = 10
 GEN_REPS = 3             # generic-cycle repetitions per timing
 WB_BATCH = 4096          # whole-body lanes
 WB_CROSS_LANES = 64      # whole-body lanes run in float64, kernels vs plain
+WB_CROSS = (20, 1, 10)   # the whole-body phase's float64 run: its depth
 CAMPAIGN_LOOP = 40_000   # the A/B runner's APF rollout steps
 SCALING_SCENARIOS = 4096  # the campaign's scaling line
+WB_DEPTH = (100, 1, 50)     # the whole-body loop: stand, domains, ticks
 TEAM_SCENARIOS = 1024    # the team phase: S x 4 agents = 4096 lanes
-TEAM_DEPTH = (300, 1, 100)  # its stand ticks, domains and ticks a domain
-EST_DEPTH = (300, 1, 100)   # estimation in the loop: stand, domains, ticks
-EVENT_DEPTH = (300, 250)    # the event-driven loop: stand and trot ticks
+TEAM_DEPTH = (100, 1, 50)   # its stand ticks, domains and ticks a domain
+EST_DEPTH = (100, 1, 50)    # estimation in the loop: stand, domains, ticks
+EVENT_DEPTH = (100, 200)    # the event-driven loop: stand and trot ticks
 EST_CROSS = (10, 1, 10)     # their float64 kernels-vs-plain runs, 64 lanes:
 EVENT_CROSS = (10, 165)     # a contact trigger near tick 160
-DIST_DEPTH = (300, 1, 100)  # the disturbance phase: stand, domains, ticks
+DIST_DEPTH = (100, 1, 50)   # the disturbance phase: stand, domains, ticks
 DIST_PUSH = (10, 300)       # its pulses' first trot tick and duration
 DIST_CROSS = (10, 1, 10)    # its float64 kernels-vs-plain run, 64 lanes,
 DIST_CROSS_PUSH = (2, 300)  # pulses from trot tick 2
-CLF_PAIR = (300, 1, 80)     # the CLF-on/CLF-off pair, 64 lanes
+CLF_PAIR = (150, 1, 80)     # the CLF-on/CLF-off pair, 64 lanes
+VEL_DEPTH = (300, 250)      # the velocity-gait phase: stand and WALK ticks
+VEL_CROSS = (10, 15)        # each gait's float64 kernels-vs-plain run, 64
+# lanes: gait -> (backend, reduced LL build); the full build's K1b (43, 30)
+# and, on "pallas", K3a and K3b run through the gait branches too
+VEL_FORMS = {"WALK": ("fused", True), "PACE": ("fused", True),
+             "INPLACE_TROT": ("fused", False), "INPLACE_WALK": ("fused", True),
+             "TAP": ("pallas", False), "POSE": ("fused", True)}
 NMPC_CHECK_LANES = 16384  # lanes of the NMPC's own QPs held to K1's plain
 K1_NEW_REPS = 3          # K1b launches per timing at B = 131072
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -1083,29 +1123,49 @@ def campaign_phase(dev, smi):
             "k1a_f64_err": k1_f64_err}
 
 
-def team_golden_check(dev, smi, counters):
-    """The `team` golden (docs/golden/golden.json, scripts/make_golden.py:
-    214-238) on the card: 1 scenario x 4 agents, the uncondensed SCP NMPC,
-    QpConfig(), the reduced LL build, float64, 300 stand ticks and 2
-    domains, backend "pallas" (the step-fused IPM through K3a and K3b for
-    the NMPC and the LL QP, K2a and K2b for the physics and the inverses).
-    Its bounds are the golden's own: com_ends, margins and final_q 1e-5,
-    llok 1e-9. Returns the kernels' launches."""
+def team_golden_plan(dev):
+    """The `team` golden's inputs and reference plan (docs/golden/golden.json,
+    scripts/make_golden.py:214-238): 1 scenario x 4 agents, the planner on
+    the card in float64, as numpy arrays for a side process. It runs here,
+    before the side processes start: the planner's graph replays many
+    small kernels and slows many times over while other processes share
+    the card."""
     from srbx_torch import refplan
-    from srbx_torch.config import (LowLevelConfig, MotionConfig, MpcConfig,
-                                   QpConfig)
     from srbx_torch.eval import run_team
-    from srbx_torch.models import a1
-    from srbx_torch.sim import closedloop, wholebody as wb
 
-    with open(ROOT / "docs" / "golden" / "golden.json") as f:
-        gold = json.load(f)["team"]
     f64 = torch.float64
     p_start = torch.tensor(run_team.P_START, dtype=f64, device=dev)
     pobs = torch.stack([torch.linspace(3.0, 8.0, 20, dtype=f64),
                         torch.linspace(-2.0, 2.0, 20, dtype=f64)]).to(dev)
+    t0 = time.perf_counter()
     ref = refplan.generate(refplan.four_agent_config(loop_size=20_000),
                            p_start, pobs, device=dev)
+    torch.cuda.synchronize()
+    return {"planner_s": time.perf_counter() - t0,
+            **{name: t.cpu().numpy() for name, t in (
+                ("p_start", p_start), ("pobs", pobs), ("pr", ref.pr),
+                ("prd", ref.prd))}}
+
+
+def team_golden_run(w):
+    """The `team` golden's loop on w.golden's plan (team_golden_plan), as a
+    side job: the uncondensed SCP NMPC, QpConfig(), the reduced LL build,
+    float64, 300 stand ticks and 2 domains, backend "pallas" (the
+    step-fused IPM through K3a and K3b for the NMPC and the LL QP, K2a and
+    K2b for the physics and the inverses). Returns its outputs, seconds
+    and the kernels' launches in it."""
+    from srbx_torch.config import (LowLevelConfig, MotionConfig, MpcConfig,
+                                   QpConfig)
+    from srbx_torch.models import a1
+    from srbx_torch.ops import pallas_linalg as plin, qp_fused, spd
+    from srbx_torch.sim import closedloop, wholebody as wb
+
+    counters = {"K1a": qp_fused.solve_lanes_last, "K1b": qp_fused.solve,
+                "K2a": spd.solve, "K2b": spd.inverse,
+                "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
+    p_start, pobs, pr, prd = (
+        torch.as_tensor(w.golden[k], device=w.dev)
+        for k in ("p_start", "pobs", "pr", "prd"))
     loop = closedloop.LoopConfig(stand_ticks=300, n_domains=2,
                                  ticks_per_domain=172)
     for k in counters.values():
@@ -1114,20 +1174,32 @@ def team_golden_check(dev, smi, counters):
     sims, com_ends, margins, llok = closedloop.run_team_batch(
         MpcConfig(use_sqp=True, sqp_iters=1), LowLevelConfig(),
         MotionConfig(), QpConfig(), wb.SimConfig(), loop, a1.model(),
-        ref.pr.reshape(1, 4, 2, -1), ref.prd.reshape(1, 4, 2, -1),
-        p_start.reshape(1, 4, 2), pobs[None], dtype=f64, backend="pallas",
-        ll_reduced=True, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in counters.items()}
-    ticks = loop.stand_ticks + loop.n_domains * loop.ticks_per_domain
-    diff = {name: float(np.abs(got.cpu().numpy()
-                               - np.asarray(gold[name])).max())
-            for name, got in (("com_ends", com_ends), ("margins", margins),
-                              ("final_q", sims.q), ("llok", llok))}
+        pr.reshape(1, 4, 2, -1), prd.reshape(1, 4, 2, -1),
+        p_start.reshape(1, 4, 2), pobs[None], dtype=torch.float64,
+        backend="pallas", ll_reduced=True, device=w.dev)
+    out = {name: t.cpu().numpy() for name, t in (
+        ("com_ends", com_ends), ("margins", margins), ("final_q", sims.q),
+        ("llok", llok))}
+    return {**out, "wall_s": time.perf_counter() - t0,
+            "ticks": loop.stand_ticks + loop.n_domains * loop.ticks_per_domain,
+            "launches": {name: k.launches for name, k in counters.items()}}
+
+
+def team_golden_check(out, planner_s, smi):
+    """The team golden's side run (`out`: team_golden_run's) held to the
+    golden's own bounds: com_ends, margins and final_q 1e-5, llok 1e-9; K3a
+    and K3b launched, K2a and K2b two a tick, no K1. Returns the kernels'
+    launches."""
+    with open(ROOT / "docs" / "golden" / "golden.json") as f:
+        gold = json.load(f)["team"]
+    launches, ticks = out["launches"], out["ticks"]
+    diff = {name: float(np.abs(out[name] - np.asarray(gold[name])).max())
+            for name in ("com_ends", "margins", "final_q", "llok")}
     rec = {"phase": "team", "what": "team golden", "backend": "pallas",
            "dtype": "float64", "scenarios": 1, "agents": 4, "ticks": ticks,
-           "wall_s": wall, "max_abs_diff": diff, "launches": launches,
+           "planner_s": planner_s, "wall_s": out["wall_s"],
+           "run": "a side process, beside phases 15 and 16",
+           "max_abs_diff": diff, "launches": launches,
            "bound": ("com_ends, margins and final_q 1e-5, llok 1e-9 (the "
                      "golden's own); K3a and K3b launched, K2a and K2b two a "
                      "tick, no K1"), "device": smi}
@@ -1142,10 +1214,30 @@ def team_golden_check(dev, smi, counters):
     return launches
 
 
-def team_phase(dev, smi, before_golden=None):
-    """Phase 13, the scenario-batched 4-agent team (see the module
-    docstring). Returns the kernels' launches in the team run and in the
-    team golden, and K1b (25, 12)'s case for the kernels line."""
+def outer_solves(on_call):
+    """qp_batch.solve, calling on_call(*args) once for each of a tick's LL
+    solves: not again for the equilibrated inner call that the solve makes
+    itself (Ruiz)."""
+    from srbx_torch.ops import qp_batch
+
+    real_solve, depth = qp_batch.solve, [0]
+
+    def solve(*a, **kw):
+        if depth[0] == 0:
+            on_call(*a)
+        depth[0] += 1
+        try:
+            return real_solve(*a, **kw)
+        finally:
+            depth[0] -= 1
+    return solve
+
+
+def team_phase(dev, smi):
+    """Phase 13 (a)-(c), the scenario-batched 4-agent team (see the module
+    docstring; (d), the team golden, runs in a side process). Returns the
+    kernels' launches in the team run and K1b (25, 12)'s case for the
+    kernels line."""
     from srbx_torch.config import QpConfig
     from srbx_torch.eval import run_team
     from srbx_torch.models import rbd
@@ -1161,7 +1253,7 @@ def team_phase(dev, smi, before_golden=None):
 
     # (a) the team at its production point through the runner: S 1024 x 4
     # agents, the JAX script's key(7) fields, loop 20,000, float32, cut in
-    # depth to TEAM_DEPTH (300 stand ticks and the first 100 ticks of 1
+    # depth to TEAM_DEPTH (100 stand ticks and the first 50 ticks of 1
     # domain). The
     # LL QPs of stand tick 150 and of the last domain's middle tick are kept
     # for (c), the state at the last domain's start for (b).
@@ -1174,15 +1266,14 @@ def team_phase(dev, smi, before_golden=None):
             + (loop.n_domains - 1) * loop.ticks_per_domain
             + loop.ticks_per_domain // 2: "trot"}
     ll_qps, shapes, domain_args = {}, set(), []
-    real_solve, real_domain = qp_batch.solve, closedloop._trot_domain
+    real_domain = closedloop._trot_domain
 
-    def capturing_solve(*a, **kw):
+    def capture(*a):
         tick = len(ll_qps.setdefault("calls", []))
         ll_qps["calls"].append(tick)
         shapes.add((a[1].shape[1], a[2].shape[1]))
         if tick in keep:
             ll_qps[keep[tick]] = ([t.clone() for t in a[:6]], a[6])
-        return real_solve(*a, **kw)
 
     def capturing_domain(*a, **kw):
         domain_args[:] = [a]
@@ -1190,7 +1281,7 @@ def team_phase(dev, smi, before_golden=None):
 
     for k in counters.values():
         k.launches = 0
-    with mock.patch.object(qp_batch, "solve", capturing_solve), \
+    with mock.patch.object(qp_batch, "solve", outer_solves(capture)), \
             mock.patch.object(closedloop, "_trot_domain", capturing_domain):
         out, planner_s, loop_s = run_team.run(pobs, loop)
     team_launches = {name: k.launches for name, k in counters.items()}
@@ -1381,14 +1472,9 @@ def team_phase(dev, smi, before_golden=None):
                  sols[0].converged, sols[1].converged, sols[0].lane_iters,
                  sols[1].lane_iters, infeasible, 7, mixed_cfg.max_iters)
 
-    # (d) the team golden through K3 on the card (before_golden: work
-    # started beside it)
-    if before_golden is not None:
-        before_golden()
-    golden_launches = team_golden_check(dev, smi, counters)
     emit({"phase": "team", "seconds": time.perf_counter() - t_phase})
-    return {"team": team_launches, "team_golden": golden_launches,
-            "k1b_cases": k1b_cases, "k1b_f64_dx": k1b_f64_dx}
+    return {"team": team_launches, "k1b_cases": k1b_cases,
+            "k1b_f64_dx": k1b_f64_dx}
 
 
 def generic_cycle_qps(cfg, qp_cfg, lanes, other, condensed):
@@ -1916,9 +2002,9 @@ def nmpc_fused_phase(dev, smi, inputs, p_start, relaxed, strict,
 
 
 def plain_kernels():
-    """A context in which the K1a, K1b, K2a and K2b wrappers run their plain
-    PyTorch versions (no launch, no count)."""
-    from srbx_torch.ops import qp_fused, spd
+    """A context in which the K1a, K1b, K2a, K2b, K3a and K3b wrappers run
+    their plain PyTorch versions (no launch, no count)."""
+    from srbx_torch.ops import pallas_linalg as plin, qp_fused, spd
 
     def plain_lanes_last(P, c, G, h, qp_cfg, x0=None):
         return qp_fused.solve_lanes_last_plain(P, c, G, h, qp_cfg, x0=x0)
@@ -1927,7 +2013,10 @@ def plain_kernels():
     for mod, name, fn in ((qp_fused, "solve", qp_fused.solve_plain),
                           (qp_fused, "solve_lanes_last", plain_lanes_last),
                           (spd, "solve", spd.solve_plain),
-                          (spd, "inverse", spd.inverse_plain)):
+                          (spd, "inverse", spd.inverse_plain),
+                          (plin, "batch_cholesky", plin.batch_cholesky_plain),
+                          (plin, "batch_cho_solve",
+                           plin.batch_cho_solve_plain)):
         stack.enter_context(mock.patch.object(mod, name, fn))
     return stack
 
@@ -2012,7 +2101,8 @@ def cross_record(res):
     """What a float64 cross-check compares of a loop's result, as numpy."""
     names = ("q", "com_hist", "est_rmse", "qp_ok", "trigger_hist",
              "domains", "mpc_solves")
-    vals = (res.sim.q, res.com_hist, res.est_rmse, res.qp_ok,
+    vals = (res.sim.q, res.com_hist, getattr(res, "est_rmse", None),
+            res.qp_ok,
             getattr(res, "trigger_hist", None), getattr(res, "domains", None),
             getattr(res, "mpc_solves", None))
     return {k: v.cpu().numpy() for k, v in zip(names, vals)
@@ -2121,41 +2211,132 @@ def clf_pair(w):
     return out
 
 
-SIDE_JOBS = {"dist": dist_crosses, "clf32": clf_pair32, "clf": clf_pair}
+def run_gait(w, gait, dtype, n, stand, ticks, backend="fused",
+             reduced=True, ll_qp_cfg=None):
+    """closedloop.run_velocity_gait at the velocity-gait phase's
+    configuration (tests/test_wholebody.py:214-216: MotionConfig(fwd_speed=
+    0.15), its relaxed QpConfig; the whole-body phase's model and lanes
+    `w`) for `gait` (a Gait name) on the first n lanes."""
+    from srbx_torch.config import Gait
+    from srbx_torch.sim import closedloop
+
+    return closedloop.run_velocity_gait(
+        Gait[gait], w.ll_cfg, dataclasses.replace(w.motion_cfg,
+                                                   fwd_speed=0.15),
+        vel_qp_cfg(), w.sim_cfg, closedloop.LoopConfig(stand_ticks=stand),
+        w.model, w.lanes(dtype, n)[2], ticks, dtype=dtype, backend=backend,
+        ll_reduced=reduced, ll_qp_cfg=ll_qp_cfg, device=w.dev)
+
+
+def vel_qp_cfg():
+    """The JAX package's velocity-gait tests' LL solver configuration."""
+    from srbx_torch.config import QpConfig
+
+    return QpConfig(abstol=2e-3, reltol=1e-4, reg_primal=1e-6,
+                    reg_dual=1e-6, max_iters=12)
+
+
+def velocity_crosses(w, plain):
+    """Every gait of VEL_FORMS in float64 on the first WB_CROSS_LANES lanes
+    over VEL_CROSS, through the kernels or (plain) their plain versions;
+    the reduced build with 5 Ruiz sweeps (the float32 run's), the full one
+    raw."""
+    out = {}
+    with plain_kernels() if plain else contextlib.nullcontext():
+        for gait, (backend, reduced) in VEL_FORMS.items():
+            res = run_gait(w, gait, torch.float64, WB_CROSS_LANES,
+                           *VEL_CROSS, backend, reduced,
+                           dataclasses.replace(vel_qp_cfg(), ruiz_iters=5)
+                           if reduced else None)
+            out.update({f"{gait}.{k}": v
+                        for k, v in cross_record(res).items()})
+    return out
+
+
+def wb_crosses(w):
+    """The whole-body phase's float64 runs of its first WB_CROSS_LANES
+    lanes over WB_CROSS, through the kernels and through the plain
+    versions."""
+    from srbx_torch.sim import closedloop
+
+    out = {}
+    for tag, plain in (("ker", False), ("plain", True)):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            res = closedloop.run_batch(
+                w.mpc, w.ll_cfg, w.motion_cfg, w.relaxed, w.sim_cfg,
+                closedloop.LoopConfig(*WB_CROSS), w.model,
+                *w.lanes(torch.float64, WB_CROSS_LANES),
+                dtype=torch.float64, device=w.dev)
+        out.update({f"{tag}.{k}": v for k, v in cross_record(res).items()})
+    return out
+
+
+def wholebody_cross(res, smi):
+    """Phase 7's float64 kernels-vs-plain line from its side job's
+    result: q and COM within 1e-9."""
+    rec = {"phase": "wholebody", "what": "float64 kernels vs plain",
+           "lanes": WB_CROSS_LANES, "ticks": list(WB_CROSS),
+           "max_abs_dq": float(np.abs(res["ker.q"] - res["plain.q"]).max()),
+           "max_abs_dcom": float(np.abs(res["ker.com_hist"]
+                                        - res["plain.com_hist"]).max()),
+           "seconds": res["seconds"], "bound": "q and COM within 1e-9",
+           "device": smi}
+    rec["ok"] = max(rec["max_abs_dq"], rec["max_abs_dcom"]) <= 1e-9
+    emit(rec)
+    check(rec["ok"], f"whole-body loop, kernels vs plain: {rec}")
+
+
+SIDE_JOBS = {"golden": team_golden_run, "wb": wb_crosses,
+             "est": functools.partial(crosses, plain=False),
+             "est_plain": functools.partial(crosses, plain=True),
+             "dist": dist_crosses, "clf32": clf_pair32, "clf": clf_pair,
+             "vel": functools.partial(velocity_crosses, plain=False),
+             "vel_plain": functools.partial(velocity_crosses, plain=True)}
+# the side processes beside phases 15 and 16, each running its jobs in
+# turn: five of about the team golden's length rather than one a job, so
+# that they do not outnumber the host's cores or crowd the card with
+# contexts (a context's kernels wait while another's run)
+SIDE_GROUPS = (("golden",), ("est_plain", "wb"), ("clf", "est"),
+               ("clf32", "dist"), ("vel_plain", "vel"))
 
 
 def _side_main(queue, payload):
-    """A side process: the float64 runs of phases 15 and 16 through the
-    kernels or through the plain versions (payload["plain"]), or a job of
-    phase 17's (payload["job"]), sent back through `queue` with the seconds
-    they took, or the error that stopped them."""
+    """A side process: the jobs payload["jobs"] of SIDE_JOBS in turn, their
+    results sent back through `queue` with the seconds each took and the
+    wall-clock times at which the process was ready and done, or the error
+    that stopped them."""
     try:
+        ready = time.time()
         sys.path.insert(0, str(ROOT))
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
         w = types.SimpleNamespace(**payload["cfgs"])
         w.dev = torch.device(payload["dev"])
         w.lanes = loop_lanes(w.dev, *payload["lanes"])
+        w.golden = payload["golden"]
         from srbx_torch.ops import qp_batch
 
-        t0 = time.perf_counter()
-        job = payload.get("job")
-        with qp_batch.full_f32_products():
-            out = (SIDE_JOBS[job](w) if job else
-                   crosses(w, payload["plain"]))
-        queue.put({"ok": True, "seconds": time.perf_counter() - t0, **out})
+        jobs = {}
+        for job in payload["jobs"]:
+            t0 = time.perf_counter()
+            with qp_batch.full_f32_products():
+                out = SIDE_JOBS[job](w)
+            jobs[job] = {"ok": True, "seconds": time.perf_counter() - t0,
+                         **out}
+        queue.put({"ok": True, "jobs": jobs, "ready": ready,
+                   "done": time.time()})
     except Exception:                          # noqa: BLE001 - reported
         import traceback
 
         queue.put({"ok": False, "error": traceback.format_exc()})
 
 
-def start_side(w, plain, job=None):
-    """Start a side process of the float64 runs through the kernels or the
-    plain versions (slow: the plain IPM and SPD solves are eager PyTorch,
-    host-bound), or of a job of SIDE_JOBS, so that they overlap untimed
-    work of this process and of each other; returns (process, queue). The
-    kernels are built already."""
+def start_side(w, jobs):
+    """Start a side process of the float64 runs `jobs` (names in SIDE_JOBS;
+    slow: the loops are host-bound, the plain IPM and SPD solves eager
+    PyTorch), so that they overlap phases 15 and 16 and each other; returns
+    (process, queue, jobs, start time). The kernels are built already;
+    w.golden is the team golden's plan (team_golden_plan)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -2163,23 +2344,24 @@ def start_side(w, plain, job=None):
     n = WB_CROSS_LANES
     payload = {"cfgs": {k: getattr(w, k) for k in (
                    "model", "ll_cfg", "motion_cfg", "sim_cfg", "mpc",
-                   "relaxed")}, "dev": str(w.dev), "plain": plain,
-               "job": job,
+                   "relaxed")}, "dev": str(w.dev), "jobs": jobs,
+               "golden": w.golden if "golden" in jobs else None,
                "lanes": tuple(torch.as_tensor(t[:n]).cpu().numpy()
                               for t in (w.pr, w.prd, w.a0, w.pobs))}
     proc = ctx.Process(target=_side_main, args=(queue, payload),
                        daemon=True)
+    started = time.time()
     proc.start()
-    return proc, queue
+    return proc, queue, jobs, started
 
 
-def finish_side(side, timeout=900):
+def finish_side(side, timeout=600):
     """The side process's results (read before the join); the process is
     joined, or stopped. A process that dies without a result fails within
     seconds, not at the timeout."""
     import queue as queue_mod
 
-    proc, queue = side
+    proc, queue = side[:2]
     deadline = time.perf_counter() + timeout
     out = None
     while out is None and time.perf_counter() < deadline:
@@ -2201,14 +2383,45 @@ def finish_side(side, timeout=900):
     return out
 
 
-def estimation_phases(dev, smi, w, sides):
+def finish_sides(sides, smi):
+    """Every side process's results, job name -> result; fails on the first
+    process that failed. Emits how long each process took to be ready and
+    to run its jobs, and how long this process waited for them."""
+    t0 = time.perf_counter()
+    outs = [finish_side(side) for side in sides]
+    waited = time.perf_counter() - t0
+    for out in outs:
+        check(out["ok"], f"a side process failed: {out}")
+    emit({"phase": "side_processes", "device": smi, "waited_s": waited,
+          "processes": [{"jobs": list(side[2]),
+                         "start_to_ready_s": out["ready"] - side[3],
+                         "run_s": out["done"] - out["ready"],
+                         "job_s": {job: out["jobs"][job]["seconds"]
+                                   for job in side[2]}}
+                        for side, out in zip(sides, outs)]})
+    return {job: res for out in outs for job, res in out["jobs"].items()}
+
+
+def side_results(sides, smi):
+    """A getter of the side processes' results by job name: its first call
+    waits for every process (finish_sides), later calls read them."""
+    results = {}
+
+    def get(job):
+        if not results:
+            results.update(finish_sides(sides, smi))
+        return results[job]
+    return get
+
+
+def estimation_phases(dev, smi, w, side):
     """Phases 15 (est_loop) and 16 (event): estimation in the loop through
     run_batch, and the event-driven loop with estimation through
     run_batch_event, at B = WB_BATCH float32 on the whole-body phase's lanes
-    (`w`); their first lanes in float64 through the kernels, held to the
-    same runs through the plain versions, both made by side processes
-    (`sides`: the kernels' and the plain versions'). Returns each phase's
-    kernel launches."""
+    (`w`), beside the side processes; their first lanes in float64 through
+    the kernels, held to the same runs through the plain versions, both
+    made by the side processes (`side`: side_results' getter, read after
+    the two float32 runs). Returns each phase's kernel launches."""
     from srbx_torch.estimation import kalman, kinest, pipeline
     from srbx_torch.ops import pallas_linalg as plin, qp_fused, spd
     from srbx_torch.sim import closedloop, sensors
@@ -2220,13 +2433,6 @@ def estimation_phases(dev, smi, w, sides):
                 "K2a": spd.solve, "K2b": spd.inverse,
                 "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
     est_cfg = pipeline.EstConfig()
-    # the side processes end before the timed runs start, so that they do
-    # not share the host or the card with them
-    t0 = time.perf_counter()
-    ker, plain = (finish_side(side) for side in sides)
-    side_wait = time.perf_counter() - t0
-    for out in (ker, plain):
-        check(out["ok"], f"the float64 runs failed: {out}")
 
     # ------------------------- 15. est_loop --------------------------- #
     t_phase = time.perf_counter()
@@ -2260,7 +2466,8 @@ def estimation_phases(dev, smi, w, sides):
                       "lanes-last CBF-SQP NMPC (sqp_iters 1, relaxed), "
                       "reduced LL build (5 Ruiz sweeps), backend fused, "
                       "EstConfig() (kinEst), est_key key(11)"),
-           "cut": ("300 stand ticks and the first 100 ticks of 1 domain "
+           "cut": (f"{loop.stand_ticks} stand ticks and the first "
+                   f"{loop.ticks_per_domain} ticks of 1 domain "
                    "against the script's 800 "
                    "and 40; one field (the whole-body phase's lanes, "
                    "obstacles 100 m away), not S fields"),
@@ -2391,8 +2598,8 @@ def estimation_phases(dev, smi, w, sides):
                       "20, mpc_latency_ticks 20, condensed lanes-last "
                       "CBF-SQP NMPC (sqp_iters 1, relaxed), reduced LL "
                       "build, backend fused, EstConfig(), est_key key(11)"),
-           "cut": ("300 stand ticks and 250 trot ticks "
-                   "against 800 and 1720"),
+           "cut": (f"{EVENT_DEPTH[0]} stand ticks and {EVENT_DEPTH[1]} "
+                   "trot ticks against 800 and 1720"),
            "ticks_per_lane": ticks, "wall_s": wall,
            "ll_ticks_per_s": WB_BATCH * ticks / wall,
            "hl_polls": polls[0],
@@ -2429,6 +2636,9 @@ def estimation_phases(dev, smi, w, sides):
     # versions' runs (the same inputs and key): q, COM and est RMSE within
     # 1e-9, equal qp_ok; for the event loop also trigger ticks, domains and
     # solves equal
+    ker, plain = side("est"), side("est_plain")
+    for out in (ker, plain):
+        check(out["ok"], f"the float64 runs failed: {out}")
     for phase, path, what in (("est_loop", "est", list(EST_CROSS)),
                               ("event", "event", list(EVENT_CROSS))):
         k, p = ({key.split(".", 1)[1]: v for key, v in out.items()
@@ -2436,7 +2646,7 @@ def estimation_phases(dev, smi, w, sides):
         rec = {"phase": phase, "what": "float64 kernels vs plain",
                "lanes": WB_CROSS_LANES, "ticks": what,
                "ll_qp_cfg": "relaxed, 5 Ruiz sweeps (the float32 run's)",
-               "runs": "two side processes, beside the team golden",
+               "runs": "side processes, beside phases 15 and 16",
                "max_abs_dq": float(np.abs(k["q"] - p["q"]).max()),
                "max_abs_dcom": float(np.abs(k["com_hist"]
                                             - p["com_hist"]).max()),
@@ -2469,8 +2679,7 @@ def estimation_phases(dev, smi, w, sides):
     emit({"phase": "est_loop", "seconds": est_seconds})
     emit({"phase": "event", "seconds": event_seconds,
           "float64_runs_s": {"kernels": ker["seconds"],
-                             "plain": plain["seconds"]},
-          "waited_for_the_side_processes_s": side_wait})
+                             "plain": plain["seconds"]}})
     return {"est_loop": launches, "event": ev_launches}
 
 
@@ -2535,11 +2744,13 @@ def disturbance_phase(dev, smi, w, dist, clf):
                       "fused; stiction=True, LowLevelConfig(use_clf=True); "
                       "every lane pushed at (0, 10, ..., 90)[lane % 10] N, "
                       "key(7) azimuths, from trot tick 10 for 300 ticks"),
-           "cut": ("300 stand ticks and the first 100 ticks of 1 domain "
+           "cut": (f"{loop.stand_ticks} stand ticks and the first "
+                   f"{loop.ticks_per_domain} ticks of 1 domain "
                    "against the script's 800 and 10 domains; pulses from "
                    "trot tick 10 (the script's onsets lie in trot ticks "
-                   "344-1203) over the run's last 90 ticks; the whole-body "
-                   "phase's lanes"),
+                   f"344-1203) over the run's last "
+                   f"{loop.ticks_per_domain - DIST_PUSH[0]} ticks; the "
+                   "whole-body phase's lanes"),
            "ticks_per_lane": ticks, "wall_s": wall,
            "ll_ticks_per_s": WB_BATCH * ticks / wall,
            "ms_per_tick": wall * 1e3 / ticks,
@@ -2649,6 +2860,140 @@ def disturbance_phase(dev, smi, w, dist, clf):
     check(rec["ok"], f"disturbance, CLF on/off: {rec}")
     emit({"phase": "disturbance", "seconds": time.perf_counter() - t_phase,
           "side_runs_s": {"dist": dist["seconds"], "clf": clf["seconds"]}})
+    return launches
+
+
+def velocity_phase(dev, smi, w, vel_ker, vel_plain):
+    """Phase 18 (velocity_gait): run_velocity_gait(WALK) at B = WB_BATCH
+    float32 on the whole-body phase's lanes (`w`), the reduced LL build
+    with 5 Ruiz sweeps, backend "fused"; and the side processes' float64
+    runs of every gait through the kernels (`vel_ker`) and the plain
+    versions (`vel_plain`). Returns the kernels' launches."""
+    from srbx_torch.config import Gait
+    from srbx_torch.ops import pallas_linalg as plin, qp_batch, qp_fused, spd
+    from srbx_torch.sim import closedloop
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    counters = {"K1a": qp_fused.solve_lanes_last, "K1b": qp_fused.solve,
+                "K2a": spd.solve, "K2b": spd.inverse,
+                "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
+    for out in (vel_ker, vel_plain):
+        check(out["ok"], f"the velocity-gait side runs failed: {out}")
+    stand, walk = VEL_DEPTH
+    ticks = stand + walk
+    run_gait(w, "WALK", f32, WB_BATCH, 2, 2)                   # warm-up
+    torch.cuda.synchronize()
+    shapes = {}
+
+    def count_shape(*a):
+        key = (a[1].shape[1], a[2].shape[1])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(qp_batch, "solve", outer_solves(count_shape)):
+        res = run_gait(w, "WALK", f32, WB_BATCH, stand, walk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    expect = {"K1a": 0, "K1b": ticks, "K2a": 2 * ticks, "K2b": 2 * ticks,
+              "K3a": 0, "K3b": 0}
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.sim.q, res.sim.qd, res.com_hist, res.qp_ok))
+    z = res.com_hist[:, :, 2]
+    # from the first WALK tick's COM to the last
+    advance = (res.com_hist[:, -1, 0] - res.com_hist[:, 0, 0]).double()
+    domains = res.domains
+    rec = {"phase": "velocity_gait", "gait": "WALK", "lanes": WB_BATCH,
+           "dtype": "float32", "backend": "fused",
+           "config": ("tests/test_wholebody.py:199-236: MotionConfig("
+                      "fwd_speed=0.15), QpConfig(abstol=2e-3, reltol=1e-4, "
+                      "reg 1e-6, max_iters=12), reduced LL build (5 Ruiz "
+                      "sweeps in float32)"),
+           "cut": (f"{stand} stand ticks and {walk} WALK ticks against the "
+                   "JAX test's 400 and 2000 at 2 lanes; the whole-body "
+                   "phase's lanes"),
+           "ticks_per_lane": ticks, "wall_s": wall,
+           "ll_ticks_per_s": WB_BATCH * ticks / wall,
+           "ms_per_tick": wall * 1e3 / ticks,
+           "ll_qp_ok": res.qp_ok.double().mean().item(),
+           "ll_qp_ok_min": res.qp_ok.min().item(),
+           "walk_com_z_min": z.min().item(),
+           "domains_min": int(domains.min()), "domains_max": int(
+               domains.max()),
+           "x_advance_m_p50": advance.median().item(),
+           "x_advance_m_min": advance.min().item(),
+           "x_advance_m_max": advance.max().item(),
+           "des_vel_x_max": res.agent.planner.des_vel[:, 0].max().item(),
+           "ll_qp_shapes": {f"{n}_{me}": c for (n, me), c in shapes.items()},
+           "launches": launches, "expected_launches": expect,
+           "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "finite": finite,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bound": ("finite; COM z > 0.25 m on every lane over the WALK "
+                     "ticks; LL qp_ok >= 0.95 on every lane; domains >= 2 "
+                     "on every lane; every LL QP at (25, 12); a tick "
+                     "launches K1b once, K2a and K2b twice, no K1a or K3"),
+           "device": smi}
+    rec["ok"] = (finite and rec["walk_com_z_min"] > 0.25
+                 and rec["ll_qp_ok_min"] >= 0.95 and rec["domains_min"] >= 2
+                 and shapes == {(25, 12): ticks} and launches == expect)
+    emit(rec)
+    check(rec["ok"], f"velocity gait: {rec}")
+
+    # where a tick's time goes: 5 WALK ticks on from the run's end
+    motion_cfg = dataclasses.replace(w.motion_cfg, fwd_speed=0.15)
+    ll_qp_cfg = closedloop._resolve_ll_qp_cfg(vel_qp_cfg(), True, None, f32)
+
+    def run5():
+        closedloop._gait_ticks(w.ll_cfg, motion_cfg, ll_qp_cfg, w.sim_cfg,
+                               w.model, Gait.WALK, res.sim, res.agent,
+                               range(ticks, ticks + 5), "fused", True)
+
+    with qp_batch.full_f32_products():
+        run5()
+        pwall, busy, by_name = device_profile(run5)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "velocity_gait", "what": "profile", "ticks": 5,
+          "lanes": WB_BATCH, "wall_ms_profiled": pwall * 1e3,
+          "device_busy_ms": busy, "idle_share": 1.0 - busy / (pwall * 1e3),
+          "top_kernels_ms": top, "device": smi})
+    del res
+
+    # every gait in float64 through the kernels and the plain versions
+    worst = {}
+    for gait, (backend, reduced) in VEL_FORMS.items():
+        k, p = ({key.split(".", 1)[1]: v for key, v in out.items()
+                 if key.startswith(gait + ".")}
+                for out in (vel_ker, vel_plain))
+        worst[gait] = {
+            "backend": backend, "ll": "reduced" if reduced else "full",
+            "max_abs_dq": float(np.abs(k["q"] - p["q"]).max()),
+            "max_abs_dcom": float(np.abs(k["com_hist"]
+                                         - p["com_hist"]).max()),
+            "qp_ok_equal": bool(np.array_equal(k["qp_ok"], p["qp_ok"])),
+            "domains_equal": bool(np.array_equal(k["domains"],
+                                                 p["domains"])),
+            "domains_max": int(k["domains"].max()),
+            "finite": bool(np.isfinite(k["q"]).all())}
+    rec = {"phase": "velocity_gait", "what": "float64 kernels vs plain",
+           "lanes": WB_CROSS_LANES, "ticks": list(VEL_CROSS),
+           "ll_qp_cfg": ("the reduced build with 5 Ruiz sweeps, the full "
+                         "one raw"), "gaits": worst,
+           "bound": ("per gait: finite, q and COM within 1e-9, qp_ok and "
+                     "domains equal; POSE's domains <= 1"), "device": smi}
+    rec["ok"] = (all(g["finite"] and g["qp_ok_equal"] and g["domains_equal"]
+                     and max(g["max_abs_dq"], g["max_abs_dcom"]) <= 1e-9
+                     for g in worst.values())
+                 and worst["POSE"]["domains_max"] <= 1)
+    emit(rec)
+    check(rec["ok"], f"velocity gait, kernels vs plain: {rec}")
+    emit({"phase": "velocity_gait",
+          "seconds": time.perf_counter() - t_phase,
+          "side_runs_s": {"kernels": vel_ker["seconds"],
+                          "plain": vel_plain["seconds"]}})
     return launches
 
 
@@ -3002,10 +3347,12 @@ def main() -> int:
     # bench_wholebody's relaxed LL and NMPC solver configuration
     wb_relaxed = QpConfig(abstol=2e-3, reltol=1e-4, reg_primal=1e-6,
                           reg_dual=1e-6, max_iters=12)
-    wb_loop = closedloop.LoopConfig(stand_ticks=300, n_domains=1,
+    # the loop of the kernel checks' states (a 172-tick TROT domain after
+    # a 200-tick stand) and the timed run's, cut to WB_DEPTH
+    wb_loop = closedloop.LoopConfig(stand_ticks=200, n_domains=1,
                                     ticks_per_domain=172)
-    wb_ticks = wb_loop.stand_ticks + wb_loop.n_domains * \
-        wb_loop.ticks_per_domain
+    wb_run = closedloop.LoopConfig(*WB_DEPTH)
+    wb_ticks = wb_run.stand_ticks + wb_run.n_domains * wb_run.ticks_per_domain
     wb_a0 = p_start[:2] + np.linspace(0.0, 0.01, WB_BATCH)[:, None] * \
         np.array([1.0, 0.0])
     wb_pobs = np.full((WB_BATCH, 2, 20), 100.0)
@@ -3199,30 +3546,22 @@ def main() -> int:
     for k in all_counts:
         k.launches = 0
     t0 = time.perf_counter()
-    res = run_wb(f32, WB_BATCH, wb_loop)
+    res = run_wb(f32, WB_BATCH, wb_run)
     torch.cuda.synchronize()
     wb_wall = time.perf_counter() - t0
     wb_launches = dict(zip(("K1a", "K1b", "K2a", "K2b"),
                            (k.launches for k in all_counts)))
-    expect = {"K1a": 2 * wb_loop.n_domains, "K1b": wb_ticks,
+    expect = {"K1a": 2 * wb_run.n_domains, "K1b": wb_ticks,
               "K2a": 2 * wb_ticks, "K2b": 2 * wb_ticks}
     finite = all(bool(torch.isfinite(t).all()) for t in (
         res.sim.q, res.sim.qd, res.com_hist, res.qp_ok, res.mpc_ok,
         res.tau_hist))
     final_z = res.com_hist[:, -1, -1, 2]
-
-    # the first lanes in float64, through the kernels and through the plain
-    # versions, over 20 stand and 10 trot ticks
-    cross_loop = closedloop.LoopConfig(20, 1, 10)
-    ker64 = run_wb(torch.float64, WB_CROSS_LANES, cross_loop)
-    with plain_kernels():
-        ref64 = run_wb(torch.float64, WB_CROSS_LANES, cross_loop)
-    torch.cuda.synchronize()
     wb_rec = {
         "phase": "wholebody", "lanes": WB_BATCH, "dtype": "float32",
-        "ticks_per_lane": wb_ticks, "stand_ticks": wb_loop.stand_ticks,
-        "n_domains": wb_loop.n_domains,
-        "ticks_per_domain": wb_loop.ticks_per_domain,
+        "ticks_per_lane": wb_ticks, "stand_ticks": wb_run.stand_ticks,
+        "n_domains": wb_run.n_domains,
+        "ticks_per_domain": wb_run.ticks_per_domain,
         "wall_s": wb_wall, "ll_ticks_per_s": WB_BATCH * wb_ticks / wb_wall,
         "ll_qp_ok": res.qp_ok.double().mean().item(),
         "mpc_ok": res.mpc_ok.double().mean().item(),
@@ -3230,22 +3569,14 @@ def main() -> int:
         "final_com_z_max": final_z.max().item(),
         "launches": wb_launches, "expected_launches": expect,
         "finite": finite,
-        "f64_kernel_vs_plain_q": (ker64.sim.q - ref64.sim.q).abs().max()
-        .item(),
-        "f64_kernel_vs_plain_com": (ker64.com_hist - ref64.com_hist).abs()
-        .max().item(),
-        "f64_cross_lanes": WB_CROSS_LANES,
-        "f64_cross_ticks": [cross_loop.stand_ticks,
-                            cross_loop.ticks_per_domain],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device": smi,
         "bound": ("finite; final COM z > 0.2 m in every lane; exact launch "
-                  "counts; f64 kernels vs plain q and com <= 1e-9"),
+                  "counts (the float64 kernels-vs-plain run: a line of its "
+                  "own after phase 13)"),
     }
     wb_rec["ok"] = (finite and final_z.min().item() > 0.2
-                    and wb_launches == expect
-                    and wb_rec["f64_kernel_vs_plain_q"] <= 1e-9
-                    and wb_rec["f64_kernel_vs_plain_com"] <= 1e-9)
+                    and wb_launches == expect)
     emit(wb_rec)
     check(wb_rec["ok"], f"whole-body loop check failed: {wb_rec}")
 
@@ -3712,29 +4043,34 @@ def main() -> int:
             row["launches_by_path"]["template_campaign_golden"] = \
                 camp["K3"][key]
     # ------------------------- 13. the team ------------------------------ #
-    # the float64 runs of phases 15 and 16 start in two side processes
-    # beside the team golden, which times nothing
+    team = team_phase(dev, smi)
+    # the team golden and the float64 runs of phases 7 and 15-18 go on in
+    # side processes beside phases 15 and 16, which time host-bound loops
+    # only; they end before phase 17
     est_w = types.SimpleNamespace(
         model=model, ll_cfg=ll_cfg, motion_cfg=motion_cfg, sim_cfg=sim_cfg,
         mpc=wb_mpc, relaxed=wb_relaxed, pr=wb_pr, prd=wb_prd, a0=wb_a0,
-        pobs=wb_pobs, dev=dev,
+        pobs=wb_pobs, dev=dev, golden=team_golden_plan(dev),
         lanes=loop_lanes(dev, wb_pr, wb_prd, wb_a0, wb_pobs))
     sides = []
     try:
-        team = team_phase(dev, smi, lambda: sides.extend(
-            [start_side(est_w, plain) for plain in (False, True)]
-            + [start_side(est_w, False, job)
-               for job in ("dist", "clf32", "clf")]))
-        # the disturbance phase's side runs end before any timed run too
-        dist, clf32, clf = (finish_side(side) for side in sides[2:])
-        clf = {**clf32, **clf, "ok": clf32["ok"] and clf["ok"],
-               "seconds": [clf32.get("seconds"), clf.get("seconds")]}
+        sides.extend(start_side(est_w, jobs) for jobs in SIDE_GROUPS)
+        side = side_results(sides, smi)
         # ----------------- 15. est_loop and 16. event ------------------- #
-        est = estimation_phases(dev, smi, est_w, sides[:2])
+        est = estimation_phases(dev, smi, est_w, side)
+        team["team_golden"] = team_golden_check(
+            side("golden"), est_w.golden["planner_s"], smi)
+        wholebody_cross(side("wb"), smi)
         # ----------------------- 17. disturbance ------------------------ #
-        est["disturbance"] = disturbance_phase(dev, smi, est_w, dist, clf)
+        clf = {**side("clf32"), **side("clf"),
+               "seconds": [side("clf32")["seconds"], side("clf")["seconds"]]}
+        est["disturbance"] = disturbance_phase(dev, smi, est_w, side("dist"),
+                                               clf)
+        # ---------------------- 18. velocity_gait ----------------------- #
+        est["velocity_gait"] = velocity_phase(dev, smi, est_w, side("vel"),
+                                              side("vel_plain"))
     finally:
-        for proc, _ in sides:
+        for proc, *_ in sides:
             if proc.is_alive():
                 proc.terminate()
                 proc.join()
@@ -3745,7 +4081,7 @@ def main() -> int:
         (key,) = kernel_keys[row["name"]]
         for path in ("team", "team_golden"):
             row["launches_by_path"][path] = team[path][key]
-        for path in ("est_loop", "event", "disturbance"):
+        for path in ("est_loop", "event", "disturbance", "velocity_gait"):
             row["launches_by_path"][path] = est[path][key]
         if key == "K1b":
             row["by_case"].update(team["k1b_cases"])

@@ -1,15 +1,18 @@
 """Per-agent 1 kHz control tick, batched over lanes.
 
-Counterpart of `srbx/agent.py` for the gaits of the whole-body loop (STAND
-and TROT): each tick updates the phase, detects a domain change (the phase
-overrun or a forced replan; the contact trigger too unless it is switched
-off), evaluates the MPC's COM Bezier with the stale-solution fallback, runs
-the motion planner and the virtual constraints, and assembles the LL QP.
+Counterpart of `srbx/agent.py` for every gait: each tick updates the phase,
+detects a domain change (the phase overrun or a forced replan; the contact
+trigger too unless it is switched off; STAND and POSE take neither
+trigger), runs the gait's planner (TROT evaluates the MPC's COM Bezier with
+the stale-solution fallback; WALK and PACE integrate a ramped velocity
+command; INPLACE_TROT, INPLACE_WALK and TAP cycle stance tables under the
+held COM; POSE oscillates about the locked stand pose), the virtual
+constraints, and assembles the LL QP.
 `tick_build` stops before the solve and `tick_finish` completes the tick
 from its solution, so that the caller solves every lane's QP in one batched
 call; `reduced` selects the reduced LL build (n 25, me 12) over the full
 one (n 43, me 30) in both. Every field of AgentState carries a leading lane
-axis. Other gaits raise NotImplementedError.
+axis.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from srbx_torch.config import Gait, LowLevelConfig, MotionConfig
 from srbx_torch.estimation import contact
 from srbx_torch.models import a1, rbd
 from srbx_torch.ops import bezier as bz
+from srbx_torch.utils import transforms as tf
 
 
 class AgentState(NamedTuple):
@@ -78,10 +82,8 @@ class TickCtx(NamedTuple):
     run_mpc: torch.Tensor     # (B,) bool
 
 
-def _gait_check(gait):
-    if gait not in (Gait.STAND, Gait.TROT):
-        raise NotImplementedError(
-            f"srbx_torch ports the STAND and TROT gaits only, got {gait!r}")
+# the gaits whose domains never end by time or touchdown
+_UNTRIGGERED = (Gait.STAND, Gait.POSE)
 
 
 def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
@@ -95,7 +97,6 @@ def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
     the reduced LL build (`lowlevel.ll_qp_build_reduced`).
 
     Returns (lowlevel.LLQpData, TickCtx)."""
-    _gait_check(gait)
     dtype = q.dtype
     bsz = q.shape[0]
     dom_ticks_gait = float(motion_cfg.trot_dom_ticks)
@@ -107,12 +108,12 @@ def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
 
     # domain-change detection
     time_trigger = phase > motion_cfg.max_phase
-    if gait == Gait.STAND:
+    if gait in _UNTRIGGERED:
         time_trigger = torch.zeros_like(time_trigger)
     time_trigger = time_trigger | force_new_domain
     con = contact.update(state.con, foot_force, phase, force_thresh)
     contact_trigger = con.change_domain
-    if gait == Gait.STAND or not allow_contact_trigger:
+    if gait in _UNTRIGGERED or not allow_contact_trigger:
         contact_trigger = torch.zeros_like(contact_trigger)
     change = time_trigger | contact_trigger
 
@@ -133,16 +134,49 @@ def tick_build(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig,
             com_des=motion.stand_com(motion_cfg, planner, phase),
             toe_init=toe_t, toe_final=toe_t)
         con = contact.set_des_domain(con, torch.ones_like(con.des))
+    elif gait == Gait.POSE:
+        # all-stance oscillation about the stand pose, locked at stand_from
+        # and the stand height, at the time of the tick before a reset
+        lock = torch.zeros_like(planner.com_des)
+        lock[:, 0:2] = planner.stand_from[:, 0:2]
+        lock[:, 2] = motion_cfg.stand_height
+        planner = planner._replace(
+            com_des=motion.pose_com(motion_cfg, motion_cfg.pose_type,
+                                    state.loco_tick * 1e-3, 0.0, lock),
+            toe_init=torch.where(change[:, None, None],
+                                 toe_pos.transpose(1, 2), planner.toe_init))
+        con = contact.set_des_domain(con, torch.ones_like(con.des))
     else:
-        com_vals = eval_com_traj(state._replace(mpc_available=mpc_available),
-                                 phase, motion_cfg.max_phase)
-        com_traj = torch.stack([q[:, 0] + 0.001 * com_vals[:, 1],
-                                q[:, 1] + 0.001 * com_vals[:, 3],
-                                com_vals[:, 1], com_vals[:, 3]], -1)
-        planner = motion.set_com_des(planner, com_traj,
-                                     motion_cfg.stand_height)
-        planner = motion.plan_trot(motion_cfg, planner, change, con.des,
-                                   toe_pos, qd[:, 0:2], state.mpc_states)
+        if gait in (Gait.WALK, Gait.PACE):
+            # no MPC: the COM reference integrates the ramped command
+            rot = tf.rot_xyz(q[:, 3:6])
+            planner = motion.com_des_from_velocity(
+                planner, q[:, 0:2], rot, motion_cfg.stand_height)
+            args = (toe_pos, qd[:, 0:3], rot, motion_cfg.fwd_speed,
+                    motion_cfg.lat_speed)
+            planner = (motion.plan_walk(motion_cfg, planner, change, *args)
+                       if gait == Gait.WALK else
+                       motion.plan_pace(motion_cfg, planner, change,
+                                        con.des, *args))
+        elif gait == Gait.INPLACE_TROT:
+            planner = motion.plan_inplace_trot(motion_cfg, planner, change,
+                                               con.des, toe_pos, hip_pos)
+        elif gait == Gait.INPLACE_WALK:
+            planner = motion.plan_inplace_walk(motion_cfg, planner, change,
+                                               toe_pos)
+        elif gait == Gait.TAP:
+            planner = motion.plan_tap(motion_cfg, planner, change, toe_pos)
+        else:
+            com_vals = eval_com_traj(
+                state._replace(mpc_available=mpc_available), phase,
+                motion_cfg.max_phase)
+            com_traj = torch.stack([q[:, 0] + 0.001 * com_vals[:, 1],
+                                    q[:, 1] + 0.001 * com_vals[:, 3],
+                                    com_vals[:, 1], com_vals[:, 3]], -1)
+            planner = motion.set_com_des(planner, com_traj,
+                                         motion_cfg.stand_height)
+            planner = motion.plan_trot(motion_cfg, planner, change, con.des,
+                                       toe_pos, qd[:, 0:2], state.mpc_states)
         con = contact.select(
             change, contact.set_des_domain(con, planner.des_domain), con)
         planner = motion.update_toe_final(planner, change, con.ind,

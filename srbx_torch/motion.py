@@ -1,10 +1,13 @@
 """Gait scheduling and per-domain motion planning, batched over lanes.
 
-Counterpart of `srbx/motion.py` for the gaits the whole-body loop runs:
-STAND (the 8-point Bezier stand-up) and TROT (alternating diagonal pairs,
-Raibert footholds from the MPC's planned velocity). Every field of
-PlannerState carries a leading lane axis; per-lane branches are masked
-updates (`torch.where`), as in the JAX package.
+Counterpart of `srbx/motion.py`: STAND (the 8-point Bezier stand-up),
+TROT (alternating diagonal pairs, Raibert footholds from the MPC's planned
+velocity), the velocity-commanded WALK and PACE (a ramped velocity command,
+Raibert steps from the filtered COM velocity), the in-place INPLACE_TROT,
+INPLACE_WALK and TAP (stance tables cycled under a held COM) and POSE's
+teach-pendant sinusoids (`pose_com`). Every field of PlannerState carries
+a leading lane axis; per-lane branches are masked updates (`torch.where`),
+as in the JAX package. Python constants keep the lanes' dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from srbx_torch.config import MotionConfig
 from srbx_torch.ops import bezier as bz
+from srbx_torch.utils import transforms as tf
 
 
 class PlannerState(NamedTuple):
@@ -72,18 +76,35 @@ def stand_com(motion: MotionConfig, state: PlannerState, phase):
 
 _TROT_A = np.asarray([0, 1, 1, 0], np.int32)
 _TROT_B = np.asarray([1, 0, 0, 1], np.int32)
+_PACE_A = np.asarray([0, 1, 0, 1], np.int32)
+_PACE_B = np.asarray([1, 0, 1, 0], np.int32)
+_WALK = np.asarray(
+    [[0, 1, 1, 1], [1, 1, 0, 1], [1, 1, 1, 0], [1, 0, 1, 1]], np.int32)
+_INPLACE_WALK = np.asarray(
+    [[0, 1, 1, 1], [1, 0, 1, 1], [1, 1, 1, 0], [1, 1, 0, 1]], np.int32)
+_TAP = np.asarray([1, 0, 1, 1], np.int32)
+_TABLES = {"trot_a": _TROT_A, "trot_b": _TROT_B, "pace_a": _PACE_A,
+           "pace_b": _PACE_B, "walk": _WALK, "inplace_walk": _INPLACE_WALK,
+           "tap": _TAP}
+# POSE's amplitude by pose_type: x, y (m), z (m), roll, pitch, yaw (rad)
+_POSE_MAGS = (0.04, 0.04, 0.05, 0.3491, 0.17453, 0.13963)
 
 
 @functools.lru_cache(maxsize=None)
-def _trot_patterns(device):
-    return (torch.as_tensor(_TROT_A, device=device),
-            torch.as_tensor(_TROT_B, device=device))
+def _table(name, device):
+    """A stance table of this module as an int32 tensor on `device`."""
+    return torch.as_tensor(_TABLES[name], device=device)
+
+
+def _swap(prev_des, a, b):
+    """(B, 4): table a where a lane's first leg was in stance, else b."""
+    return torch.where(prev_des[:, 0:1] == 1, _table(a, prev_des.device),
+                       _table(b, prev_des.device))
 
 
 def next_trot_domain(prev_des):
     """The upcoming trot stance pattern (B, 4): the diagonals swap."""
-    a, b = _trot_patterns(prev_des.device)
-    return torch.where(prev_des[:, 0:1] == 1, a, b)
+    return _swap(prev_des, "trot_a", "trot_b")
 
 
 def set_com_des(state: PlannerState, com_xy_traj, stand_height=0.28
@@ -94,6 +115,11 @@ def set_com_des(state: PlannerState, com_xy_traj, stand_height=0.28
     new = torch.cat([com_xy_traj[:, 0:2], zero + stand_height,
                      com_xy_traj[:, 2:4], zero, com[:, 6:]], -1)
     return state._replace(com_des=new)
+
+
+def _on_change(ch, new, old):
+    """Per lane: new where the domain changes (ch (B,)), else old."""
+    return torch.where(ch.view((-1,) + (1,) * (old.dim() - 1)), new, old)
 
 
 def plan_trot(motion: MotionConfig, state: PlannerState, change_domain,
@@ -119,15 +145,156 @@ def plan_trot(motion: MotionConfig, state: PlannerState, change_domain,
     ch = change_domain
     return PlannerState(
         com_des=state.com_des,
-        toe_init=torch.where(ch[:, None, None], toe, state.toe_init),
-        toe_final=torch.where(ch[:, None, None], toe, state.toe_final),
-        step_len=torch.where(ch[:, None], step, state.step_len),
-        dom_ticks=torch.where(ch, dom_ticks, state.dom_ticks),
-        des_domain=torch.where(ch[:, None], new_des, state.des_domain),
+        toe_init=_on_change(ch, toe, state.toe_init),
+        toe_final=_on_change(ch, toe, state.toe_final),
+        step_len=_on_change(ch, step, state.step_len),
+        dom_ticks=_on_change(ch, dom_ticks, state.dom_ticks),
+        des_domain=_on_change(ch, new_des, state.des_domain),
         stand_from=state.stand_from,
         des_vel=state.des_vel,
-        cycle_idx=torch.where(ch, state.cycle_idx + 1, state.cycle_idx),
+        cycle_idx=_on_change(ch, state.cycle_idx + 1, state.cycle_idx),
     )
+
+
+def _ramp_vel(des_vel, fwd_speed, lat_speed, rate=0.01):
+    """The signed velocity ramp of des_vel (B, 3) toward the command: an
+    axis steps by rate toward its target while sign(target) * v <
+    sign(target) * target, so an overshoot or a reversed command still
+    converges; a zero target (sign 0) leaves the axis as it is."""
+    def axis(v, target):
+        sgn = float(np.sign(target))
+        return torch.where(sgn * v < sgn * target, v + rate * sgn, v)
+
+    return torch.stack([axis(des_vel[:, 0], fwd_speed),
+                        axis(des_vel[:, 1], lat_speed), des_vel[:, 2]], -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _gains(kp, dtype, device):
+    """The Raibert gains kp (a tuple) as a tensor, made once per device."""
+    return torch.tensor(kp, dtype=dtype, device=device)
+
+
+def _velocity_step(state, change_domain, toe_pos, com_filtered, rot,
+                   fwd_speed, lat_speed, dom_sec, kp, new_des):
+    """The WALK and PACE domain update where change_domain: the ramped
+    command, the Raibert step in the body frame, the domain length and the
+    stance pattern new_des (B, 4)."""
+    des_vel = _ramp_vel(state.des_vel, fwd_speed, lat_speed)
+    kp = _gains(kp, des_vel.dtype, des_vel.device)
+    step_body = (kp * (tf.to_body(com_filtered, rot) - des_vel)
+                 + dom_sec * tf.to_body(des_vel, rot) / 2.0)
+    ch = change_domain
+    return state._replace(
+        toe_init=_on_change(ch, toe_pos.transpose(1, 2), state.toe_init),
+        step_len=_on_change(ch, tf.to_world(step_body, rot),
+                            state.step_len),
+        dom_ticks=_on_change(ch, torch.full_like(state.dom_ticks,
+                                                 dom_sec * 1000.0),
+                             state.dom_ticks),
+        des_domain=_on_change(ch, new_des, state.des_domain),
+        des_vel=_on_change(ch, des_vel, state.des_vel),
+        cycle_idx=_on_change(ch, state.cycle_idx + 1, state.cycle_idx),
+    )
+
+
+def plan_walk(motion: MotionConfig, state: PlannerState, change_domain,
+              toe_pos, com_filtered, rot, fwd_speed=0.0, lat_speed=0.0
+              ) -> PlannerState:
+    """WALK domain update where change_domain (B,): one swing leg at a
+    time through 0.2 s domains (the table row after cycle_idx), the ramped
+    command, Raibert steps from com_filtered (B, 3) in the body frame of
+    rot (B, 3, 3)."""
+    n = torch.remainder(state.cycle_idx + 1, 4).long()
+    return _velocity_step(state, change_domain, toe_pos, com_filtered, rot,
+                          fwd_speed, lat_speed, 0.2, (0.04, 0.01, 0.0),
+                          _table("walk", n.device)[n])
+
+
+def plan_pace(motion: MotionConfig, state: PlannerState, change_domain,
+              prev_des, toe_pos, com_filtered, rot, fwd_speed=0.0,
+              lat_speed=0.0) -> PlannerState:
+    """PACE domain update where change_domain: the lateral pairs swap
+    through 0.1 s domains, otherwise as plan_walk."""
+    return _velocity_step(state, change_domain, toe_pos, com_filtered, rot,
+                          fwd_speed, lat_speed, 0.1, (0.04, 0.02, 0.0),
+                          _swap(prev_des, "pace_a", "pace_b"))
+
+
+def _in_place(state, change_domain, toe_init, dom_ticks, new_des):
+    """The in-place gaits' domain update where change_domain: the toe
+    anchors, the domain length and the stance pattern; the COM held."""
+    ch = change_domain
+    return state._replace(
+        toe_init=_on_change(ch, toe_init, state.toe_init),
+        dom_ticks=_on_change(ch, torch.full_like(state.dom_ticks, dom_ticks),
+                             state.dom_ticks),
+        des_domain=_on_change(ch, new_des, state.des_domain),
+        cycle_idx=_on_change(ch, state.cycle_idx + 1, state.cycle_idx))
+
+
+def plan_inplace_trot(motion: MotionConfig, state: PlannerState,
+                      change_domain, prev_des, toe_pos, hip_pos
+                      ) -> PlannerState:
+    """INPLACE_TROT where change_domain: the diagonals swap through 0.16 s
+    domains, the toes re-targeted under the hips (hip_pos (B, 4, 3)) in x
+    and y, toe_init's z kept."""
+    toe_init = torch.cat([hip_pos.transpose(1, 2)[:, 0:2],
+                          state.toe_init[:, 2:3]], 1)
+    return _in_place(state, change_domain, toe_init, 160.0,
+                     next_trot_domain(prev_des))
+
+
+def plan_tap(motion: MotionConfig, state: PlannerState, change_domain,
+             toe_pos) -> PlannerState:
+    """TAP where change_domain: the FL leg held raised ({1, 0, 1, 1})
+    through 1.5 s domains, zero step length."""
+    out = _in_place(state, change_domain, toe_pos.transpose(1, 2), 1500.0,
+                    _table("tap", toe_pos.device))
+    return out._replace(step_len=_on_change(
+        change_domain, torch.zeros_like(state.step_len), state.step_len))
+
+
+def plan_inplace_walk(motion: MotionConfig, state: PlannerState,
+                      change_domain, toe_pos) -> PlannerState:
+    """INPLACE_WALK where change_domain: one swing leg at a time (FR, FL,
+    RL, RR) through 0.3 s domains, the toes re-anchored."""
+    n = torch.remainder(state.cycle_idx + 1, 4).long()
+    return _in_place(state, change_domain, toe_pos.transpose(1, 2), 300.0,
+                     _table("inplace_walk", n.device)[n])
+
+
+def pose_com(motion: MotionConfig, pose_type: int, t, t_init, com_lock):
+    """POSE's teach-pendant sinusoid about com_lock (B, 12) at times t
+    (B,) from t_init: pose_type (0-5, a Python int) picks the axis (x, y,
+    z, roll, pitch, yaw) and its amplitude; its rate row moves with it."""
+    if pose_type not in range(len(_POSE_MAGS)):
+        raise ValueError(f"pose_type must be 0-5, got {pose_type!r}")
+    freq = 0.8 * np.pi
+    mag = _POSE_MAGS[pose_type]
+    tt = t - t_init
+    com = com_lock.clone()
+    if pose_type == 2:
+        com[:, 2] += mag * torch.cos(freq * tt) - mag
+        com[:, 5] += -mag * freq * torch.sin(freq * tt)
+    else:
+        # x, y: rows 0-1 and their rates 3-4; angles: rows 6-8, rates 9-11
+        row = pose_type if pose_type < 2 else pose_type + 3
+        com[:, row] += mag * torch.sin(freq * tt)
+        com[:, row + 3] += mag * freq * torch.cos(freq * tt)
+    return com
+
+
+def com_des_from_velocity(state: PlannerState, q_xy, rot, stand_height,
+                          dt: float = 1e-3) -> PlannerState:
+    """The velocity-command COM reference of WALK and PACE: position q_xy
+    (B, 2) + rot des_vel dt at the stand height, velocity rot des_vel."""
+    vel_w = tf.to_world(state.des_vel, rot)
+    com = state.com_des
+    new = torch.cat([q_xy + vel_w[:, 0:2] * dt,
+                     torch.full_like(com[:, 0:1], stand_height), vel_w,
+                     com[:, 6:]], -1)
+    return state._replace(com_des=new)
 
 
 def update_toe_final(state: PlannerState, change_domain, ind, ind_prev,

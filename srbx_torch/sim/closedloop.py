@@ -1,8 +1,9 @@
 """Full-fidelity closed loops, batched over lanes: stand-up, then trot
-domains under the event-cadence NMPC, or event-driven trot ticks.
+domains under the event-cadence NMPC, event-driven trot ticks, or the
+MPC-less velocity-commanded and in-place gaits.
 
-Counterpart of `srbx/sim/closedloop.py::run_batch`, `run_team_batch` and
-`run_batch_event`.
+Counterpart of `srbx/sim/closedloop.py::run_batch`, `run_team_batch`,
+`run_batch_event` and `run_velocity_gait`.
 Every 1 ms tick of every lane builds the low-level QP (`agent.tick_build`:
 the full build, n 43 / me 30, or with `ll_reduced` the reduced one, n 25 /
 me 12), solves all lanes' QPs in one call of `qp_batch.solve`, finishes the
@@ -294,14 +295,19 @@ def _nmpc(mpc_cfg, qp_cfg, model, mcarries, qs, qds, contact_ind, pr, prd,
         agent_circle_eps=agent_circle_eps)
 
 
-def _check_options(mpc_cfg, backend):
-    """Raise on what the port does not run."""
+def _check_backend(backend):
+    """Raise on a backend the port does not run."""
     if backend == "lanes":
         raise NotImplementedError(
             "the pure-JAX 'lanes' backend is left out of srbx_torch "
             "(ROADMAP.md); use 'fused', 'pallas' or 'xla'")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+
+
+def _check_options(mpc_cfg, backend):
+    """Raise on what the port does not run."""
+    _check_backend(backend)
     if backend == "fused":
         mpc_batch.check_fused(mpc_cfg, mpc_cfg.condensed)
 
@@ -653,3 +659,85 @@ def _run_event(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop,
         est_rmse=(torch.sqrt(torch.stack(errsq, 1).mean(1))
                   if est_cfg is not None else None),
     )
+
+
+class VelocityGaitResult(NamedTuple):
+    """run_velocity_gait's result; every field has a leading lane axis B."""
+
+    sim: wb.SimState
+    agent: agent_mod.AgentState
+    com_hist: torch.Tensor      # (B, n_ticks, 3)
+    qp_ok: torch.Tensor         # (B,) share of converged LL QPs
+    domains: torch.Tensor       # (B,) int32 gait domains completed
+
+
+VELOCITY_GAITS = (Gait.WALK, Gait.PACE, Gait.INPLACE_TROT, Gait.INPLACE_WALK,
+                  Gait.TAP, Gait.POSE)
+
+
+def run_velocity_gait(
+    gait: Gait,
+    ll_cfg: LowLevelConfig,
+    motion_cfg: MotionConfig,
+    qp_cfg: QpConfig,
+    sim_cfg: wb.SimConfig,
+    loop: LoopConfig,
+    model: rbd.Model,
+    agent_initial,   # (B, 2)
+    n_ticks: int,
+    dtype=torch.float64,
+    backend: str = "fused",
+    ll_reduced: bool = False,
+    ll_qp_cfg: QpConfig | None = None,
+    device=None,
+) -> VelocityGaitResult:
+    """Batched MPC-less gait: the JAX package's `run_velocity_gait` without
+    the TPU kernels' lane tile (`tile` is not taken) and with `device`
+    (None means the CUDA card; agent_initial is moved there). The stand-up,
+    then n_ticks ticks of `gait` with per-lane domains (tick 0 forces one;
+    after it a lane's phase overrun or touchdown ends its domain; POSE's
+    never end): WALK and PACE step under the ramped `motion_cfg.fwd_speed`
+    / `lat_speed` command with their own Raibert steps; INPLACE_TROT,
+    INPLACE_WALK and TAP hold the COM at the stand target while cycling
+    their stance tables; POSE oscillates `motion_cfg.pose_type`'s axis
+    about the locked stand pose. Backends, builds and solver configurations
+    as in `run_batch`; no NMPC runs, so K1a never does."""
+    if gait not in VELOCITY_GAITS:
+        raise ValueError(f"run_velocity_gait drives {VELOCITY_GAITS}, got "
+                         f"{gait!r}")
+    _check_backend(backend)
+    device, (agent_initial,) = _on_device(device, dtype, agent_initial)
+    ll_qp_cfg = _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype)
+    with qp_batch.full_f32_products():
+        sims, asts, _ = _init_lanes(motion_cfg, loop, model, agent_initial,
+                                    dtype)
+        sims, asts, _ = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg,
+                                     loop, model, sims, asts, backend,
+                                     ll_reduced)
+        sims, asts, com, llok = _gait_ticks(
+            ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, model, gait, sims, asts,
+            range(n_ticks), backend, ll_reduced)
+    return VelocityGaitResult(
+        sim=sims,
+        agent=asts,
+        com_hist=com,
+        qp_ok=llok.to(dtype).mean(1),
+        domains=asts.gait_domain,
+    )
+
+
+def _gait_ticks(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, model, gait, sims,
+                asts, ticks, backend, ll_reduced):
+    """The gait ticks `ticks` (a range; tick 0 forces a domain change) of
+    run_velocity_gait. Returns (sims, asts, com (B, n, 3), llok (B, n))."""
+    com, llok = [], []
+    for k in ticks:
+        forces = wb.foot_force_measurement(sim_cfg, model, sims)
+        ll_outs, asts, _, d_b = _tick_batch(
+            ll_cfg, motion_cfg, ll_qp_cfg, model, gait, asts, sims.q, sims.qd,
+            forces, backend, force_new_domain=(k == 0),
+            allow_contact_trigger=True, reduced=ll_reduced, return_d=True)
+        sims = _physics(sim_cfg, model, sims, ll_outs.tau, backend, d_b, None)
+        com.append(sims.q[:, 0:3])
+        llok.append(ll_outs.qp_converged)
+    return sims, asts, torch.stack(com, 1), torch.stack(llok, 1)

@@ -52,7 +52,8 @@ MODULES = sorted(
 
 # the port's own scripts, imported (not run) with the package
 SCRIPTS = [ROOT / "scripts" / name for name in (
-    "torch_campaign_push.py", "torch_clf_loop.py", "torch_push_compare.py")]
+    "torch_campaign_push.py", "torch_clf_loop.py", "torch_push_compare.py",
+    "torch_velocity_gait_depth.py", "torch_smoke_parts.py")]
 
 
 def test_import_pulls_in_no_jax():
@@ -131,11 +132,17 @@ def _default(value):
     (closedloop.run_batch_event, jclosedloop.run_batch_event),
     (pipeline.update, jpipeline.update), (sensors.read, jsensors.read),
     (campaign.run_campaign_chunked, jcampaign.run_campaign_chunked),
+    (closedloop.run_velocity_gait, jclosedloop.run_velocity_gait),
+    (motion.plan_walk, jmotion.plan_walk),
+    (motion.plan_pace, jmotion.plan_pace),
+    (motion.com_des_from_velocity, jmotion.com_des_from_velocity),
+    (motion._ramp_vel, jmotion._ramp_vel),
 ], ids=["run_nmpc_batch", "qp_batch_solve", "run_batch", "qp_fused_solve",
         "solve_lanes_last", "spd_solve", "spd_inverse", "run_campaign_batch",
         "run_campaign_batch_core", "run_team_batch", "step_batch",
         "run_batch_event", "pipeline_update", "sensors_read",
-        "run_campaign_chunked"])
+        "run_campaign_chunked", "run_velocity_gait", "plan_walk",
+        "plan_pace", "com_des_from_velocity", "ramp_vel"])
 def test_entry_points_keep_the_jax_defaults(mine, theirs):
     """Every parameter that a port entry point shares with its JAX
     counterpart has the same default, so that a call ported from the JAX
@@ -191,8 +198,20 @@ def test_run_team_batch_signature_differs_only_as_documented():
      ["backend", "tile"]),
     (refplan.generate, jrefplan.generate, ["device"], []),
     (wb.step_batch, jwb.step_batch, [], ["tile"]),
+    (closedloop.run_velocity_gait, jclosedloop.run_velocity_gait,
+     ["device"], ["tile"]),
+    (motion.plan_walk, jmotion.plan_walk, [], []),
+    (motion.plan_pace, jmotion.plan_pace, [], []),
+    (motion.plan_inplace_trot, jmotion.plan_inplace_trot, [], []),
+    (motion.plan_tap, jmotion.plan_tap, [], []),
+    (motion.plan_inplace_walk, jmotion.plan_inplace_walk, [], []),
+    (motion.pose_com, jmotion.pose_com, [], []),
+    (motion.com_des_from_velocity, jmotion.com_des_from_velocity, [], []),
+    (motion._ramp_vel, jmotion._ramp_vel, [], []),
 ], ids=["spd_solve", "spd_inverse", "forward_dynamics_batch", "generate",
-        "step_batch"])
+        "step_batch", "run_velocity_gait", "plan_walk", "plan_pace",
+        "plan_inplace_trot", "plan_tap", "plan_inplace_walk", "pose_com",
+        "com_des_from_velocity", "ramp_vel"])
 def test_dropped_parameters_are_documented(mine, theirs, ours_only,
                                            theirs_only):
     """The parameters a port entry point drops from its JAX counterpart, and
@@ -200,8 +219,9 @@ def test_dropped_parameters_are_documented(mine, theirs, ours_only,
     interpret are the TPU kernels', the backend of spd and
     forward_dynamics_batch picks a TPU kernel or jax.scipy's Cholesky (the
     port runs K2a and K2b on the card). The rest keep the JAX order;
-    refplan.generate adds device and takes return_raw, step_batch
-    base_force."""
+    refplan.generate and run_velocity_gait add device, refplan.generate
+    takes return_raw, step_batch base_force; the gait planners take the JAX
+    parameters as they are."""
     ours = list(inspect.signature(mine).parameters)
     ref = list(inspect.signature(theirs).parameters)
     assert [n for n in ref if n not in ours] == theirs_only
@@ -259,6 +279,9 @@ def test_entry_points_default_to_the_card():
                  np.zeros((1, 4, 2, 10)), np.zeros((1, 4, 2)),
                  np.full((1, 2, 20), 100.0))[1],
              lambda: closedloop.run_batch_event(*_loop_args(), 1).com_hist,
+             lambda: closedloop.run_velocity_gait(
+                 config.Gait.WALK, *_loop_args()[1:7], np.zeros((2, 2)),
+                 1).com_hist,
              lambda: prng.key(0)]
     for call in calls:
         if torch.cuda.is_available():
