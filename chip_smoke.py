@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Eleven paths, each driven through the entry point a user calls:
+Twelve paths, each driven through the entry point a user calls:
 
 * the batched CBF-NMPC control cycle (`srbx_torch.mpc_batch.run_nmpc_batch`
   on its lanes-last fused branch, kernel K1a) at the benchmark operating
@@ -65,9 +65,18 @@ Eleven paths, each driven through the entry point a user calls:
   LL QP after 5 Ruiz sweeps (K1b at n 25 / me 12), K2a and K2b, no NMPC;
   300 stand ticks and 250 WALK ticks; and every other gait of the entry
   point (PACE, INPLACE_TROT, INPLACE_WALK, TAP, POSE) in float64 on 64
-  lanes.
+  lanes;
+* the per-agent path, the JAX package's own architecture that its batched
+  loops are held to (`closedloop.run` and `closedloop.run_team`: every
+  tick `agent.tick`, each agent's LL QP by the dense per-problem IPM
+  `ops.qp.solve`, the plant `wholebody.step`, each domain's replan
+  `mpc.run_nmpc`; no kernel) at the paper's configuration: two agents,
+  float32, `MpcConfig(use_sqp=True, sqp_iters=2)`, `QpConfig()`, the full
+  LL build; 100 stand ticks and 1 trot domain of 172 ticks; and in
+  float64 `run` and `run_team` against `run_batch` and `run_team_batch`
+  on "xla".
 
-Phases, each printing JSON lines (14 runs after 11, before 12; 15 to 18
+Phases, each printing JSON lines (14 runs after 11, before 12; 15 to 19
 after 13):
 
 1. probe     - the card, and its name and power limit as nvidia-smi gives;
@@ -223,16 +232,35 @@ after 13):
                10 stand and 15 gait ticks, through the kernels and the
                plain versions: q and COM within 1e-9, equal qp_ok and
                domains, POSE's domains <= 1.
+19. per_agent - (a) in a side process, float64: `closedloop.run` (one
+               agent, tests/test_wholebody.py:165-199's configuration, 100
+               stand and 2 x 40 trot ticks) against run_batch("xla") at
+               B 1 (q and COM within 1e-8, qp_ok and mpc_ok within 1e-12)
+               and `run_team` (two agents, tests/test_team.py:50-100's, 100
+               + 2 x 30) against run_team_batch("xla") at S 1 (COM within
+               2e-3, margins within 1e-2, LL qp_ok > 0.95); (b) run_team at
+               the paper's configuration (tests/test_team.py:15-48), two
+               agents, float32, 100 + 1 x 172 ticks: no kernel launched,
+               both agents finite and standing (|z - 0.28| < 0.03 m, roll
+               and pitch < 0.15 rad), every CBF margin >= cbf_eps - 1e-3;
+               LL qp_ok >= 0.85 (in float32 under QpConfig() the LL QP's
+               IPM meets a non-finite step on some ticks, in the JAX
+               package too, which converges 0.860 of them here; 0.95 is
+               held in float64); ms a tick, the IPM iterations of the NMPC's and
+               the LL's QPs, the final separation; a profile of 5 trot
+               ticks (the card's idle share).
 
 The team golden's loop and the float64 runs of phases 7 and 15-18 (and
 the float32 CLF pair) go on in five side processes (SIDE_GROUPS), started
 after phase 13 and run beside phases 15 and 16, whose rates they slow;
-they end before phase 17, and a "side_processes" line gives each one's
-seconds. Phases 3-14, 17 and 18 run alone on the card.
+phase 19's float64 runs go on in a sixth, started with them. All six end
+before phase 17, which waits for them; a "side_processes" line gives each
+one's seconds and the wait. Phases 3-14 and 17-19 run alone on the card.
 
 Then a {"kernels": [...]} line (K1b (41, 28), K1b (17, 4) and K1a above
 64 rows on rows of their own; each row's launches by path include phases
-15-18's) and, last, {"ok": true, "device": {...}}.
+15-19's, phase 19's 0 on every row) and, last, {"ok": true, "device":
+{...}}.
 Any failed check raises and the script exits non-zero. Without a CUDA card,
 or outside the repository, it exits non-zero and prints no result.
 """
@@ -283,6 +311,21 @@ VEL_CROSS = (10, 15)        # each gait's float64 kernels-vs-plain run, 64
 VEL_FORMS = {"WALK": ("fused", True), "PACE": ("fused", True),
              "INPLACE_TROT": ("fused", False), "INPLACE_WALK": ("fused", True),
              "TAP": ("pallas", False), "POSE": ("fused", True)}
+# the per-agent path (phase 19): stand ticks, domains, ticks a domain
+AGENT_RUN = (100, 2, 40)    # run vs run_batch("xla"), float64, one agent
+#                             (tests/test_wholebody.py:165-199: 200 stand)
+AGENT_TEAM = (100, 2, 30)   # run_team vs run_team_batch("xla"), float64,
+#                             two agents (tests/test_team.py:50-100: 150)
+AGENT_PAPER = (100, 1, 172)  # run_team at the paper's configuration, f32
+AGENT_PROFILE_TICKS = 5     # trot ticks profiled after it
+# its LL qp_ok floor in float32: under QpConfig() (shifts of 1e-9) the LL
+# QP's IPM meets a non-finite step on some ticks; the JAX package's own
+# float32 run at this configuration and depth converges 0.860 of its LL
+# QPs on an x86 CPU and the port 0.863 there (tests/test_torch_per_agent.py,
+# the slow float32 test), 0.892 on the H100, so the floor sits just under
+# both readings; the JAX test's 0.95 holds in float64 (the side jobs,
+# scripts/torch_per_agent_depth.py)
+AGENT_F32_LL_OK = 0.85
 NMPC_CHECK_LANES = 16384  # lanes of the NMPC's own QPs held to K1's plain
 K1_NEW_REPS = 3          # K1b launches per timing at B = 131072
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -2286,18 +2329,100 @@ def wholebody_cross(res, smi):
     check(rec["ok"], f"whole-body loop, kernels vs plain: {rec}")
 
 
+def _agent_reference(p_start, loop_size, dev, dtype=torch.float64):
+    """The two-agent APF reference from p_start among far obstacles, and
+    the obstacles (2, 20)."""
+    from srbx_torch import refplan
+
+    pobs = torch.full((2, 20), 100.0, dtype=dtype, device=dev)
+    traj = refplan.generate(refplan.two_agent_config(loop_size=loop_size),
+                            torch.tensor(p_start, dtype=dtype, device=dev),
+                            pobs, dtype=dtype, device=dev)
+    return traj, pobs
+
+
+def agent_run_cross(w):
+    """Phase 19's part 1 (float64): closedloop.run, one agent, at
+    tests/test_wholebody.py:165-199's configuration (MpcConfig(use_sqp=
+    False), the default LL, motion, solver and plant configurations; lane 0
+    of that test: from the origin on the reference of agent 0) over
+    AGENT_RUN, and run_batch(backend="xla") at B 1 on the same inputs."""
+    from srbx_torch.config import MpcConfig, QpConfig
+    from srbx_torch.sim import closedloop
+
+    traj, pobs = _agent_reference([0.0, 0.0, 0.0, -1.0], 20_000, w.dev)
+    args = (MpcConfig(use_sqp=False), w.ll_cfg, w.motion_cfg, QpConfig(),
+            w.sim_cfg, closedloop.LoopConfig(*AGENT_RUN), w.model)
+    a0 = torch.zeros(2, dtype=torch.float64, device=w.dev)
+    t0 = time.perf_counter()
+    res = closedloop.run(*args, traj.pr[0:2], traj.prd[0:2], a0, pobs,
+                         device=w.dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bat = closedloop.run_batch(*args, traj.pr[None, 0:2],
+                               traj.prd[None, 0:2], a0[None], pobs[None],
+                               backend="xla", device=w.dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"run_s": t1 - t0, "batch_s": t2 - t1,
+            "run.q": res.sim.q.cpu().numpy(),
+            "run.com_hist": res.com_hist.cpu().numpy(),
+            "run.qp_ok": float(res.qp_ok), "run.mpc_ok": float(res.mpc_ok),
+            "batch.q": bat.sim.q[0].cpu().numpy(),
+            "batch.com_hist": bat.com_hist[0].cpu().numpy(),
+            "batch.qp_ok": float(bat.qp_ok[0]),
+            "batch.mpc_ok": float(bat.mpc_ok[0])}
+
+
+def agent_team_cross(w):
+    """Phase 19's part 2 (float64): closedloop.run_team, two agents, at
+    tests/test_team.py:50-100's configuration (MpcConfig(use_sqp=False),
+    starts 1 m apart, the reference of loop 8000) over AGENT_TEAM, and
+    run_team_batch(backend="xla") at S 1 on the same inputs."""
+    from srbx_torch.config import MpcConfig, QpConfig
+    from srbx_torch.sim import closedloop
+
+    p_start = [0.0, 0.5, 0.0, -0.5]
+    traj, pobs = _agent_reference(p_start, 8_000, w.dev)
+    args = (MpcConfig(use_sqp=False), w.ll_cfg, w.motion_cfg, QpConfig(),
+            w.sim_cfg, closedloop.LoopConfig(*AGENT_TEAM), w.model)
+    pr, prd = traj.pr.reshape(2, 2, -1), traj.prd.reshape(2, 2, -1)
+    a0 = torch.tensor(p_start, dtype=torch.float64,
+                      device=w.dev).reshape(2, 2)
+    t0 = time.perf_counter()
+    _, com1, mar1, ok1 = closedloop.run_team(*args, pr, prd, a0, pobs,
+                                             device=w.dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, com2, mar2, ok2 = closedloop.run_team_batch(
+        *args, pr[None], prd[None], a0[None], pobs[None], backend="xla",
+        device=w.dev)
+    torch.cuda.synchronize()
+    return {"run_s": t1 - t0, "batch_s": time.perf_counter() - t1,
+            "run.com_ends": com1.cpu().numpy(),
+            "run.margins": mar1.cpu().numpy(), "run.llok": ok1.cpu().numpy(),
+            "batch.com_ends": com2[:, 0].cpu().numpy(),
+            "batch.margins": mar2[:, 0].cpu().numpy(),
+            "batch.llok": ok2[:, 0].cpu().numpy()}
+
+
 SIDE_JOBS = {"golden": team_golden_run, "wb": wb_crosses,
              "est": functools.partial(crosses, plain=False),
              "est_plain": functools.partial(crosses, plain=True),
              "dist": dist_crosses, "clf32": clf_pair32, "clf": clf_pair,
              "vel": functools.partial(velocity_crosses, plain=False),
-             "vel_plain": functools.partial(velocity_crosses, plain=True)}
+             "vel_plain": functools.partial(velocity_crosses, plain=True),
+             "agent_run": agent_run_cross, "agent_team": agent_team_cross}
 # the side processes beside phases 15 and 16, each running its jobs in
 # turn: five of about the team golden's length rather than one a job, so
 # that they do not outnumber the host's cores or crowd the card with
 # contexts (a context's kernels wait while another's run)
 SIDE_GROUPS = (("golden",), ("est_plain", "wb"), ("clf", "est"),
                ("clf32", "dist"), ("vel_plain", "vel"))
+# phase 19's float64 runs: a sixth side process, started with the five and
+# waited for before phase 17. Its two jobs take about 150 s alone on the
+# card, more than any of the five groups leaves free beside phases 15-16
+AGENT_GROUP = ("agent_run", "agent_team")
 
 
 def _side_main(queue, payload):
@@ -2994,6 +3119,183 @@ def velocity_phase(dev, smi, w, vel_ker, vel_plain):
           "seconds": time.perf_counter() - t_phase,
           "side_runs_s": {"kernels": vel_ker["seconds"],
                           "plain": vel_plain["seconds"]}})
+    return launches
+
+
+def per_agent_phase(dev, smi, w, run1, team1):
+    """Phase 19 (per_agent): the per-agent path, which runs no kernel.
+    (1), (2): the side processes' float64 runs (`run1`: closedloop.run
+    against run_batch("xla") at B 1; `team1`: run_team against
+    run_team_batch("xla") at S 1) held to their JAX tests' bounds; (3)
+    run_team at the paper's configuration (tests/test_team.py:15-48:
+    MpcConfig(use_sqp=True, sqp_iters=2), QpConfig(), the full LL build),
+    two agents 1.2 m apart, float32, over AGENT_PAPER: ms a tick, the IPM
+    iterations of the NMPC's and the LL's QPs, a profile of
+    AGENT_PROFILE_TICKS trot ticks, and the checks: no kernel launched,
+    both agents standing, every CBF margin >= cbf_eps - 1e-3, LL qp_ok >=
+    AGENT_F32_LL_OK. `w`: the whole-body phase's model and configurations.
+    Returns the kernels' launches over (3)."""
+    from srbx_torch.config import MpcConfig, QpConfig
+    from srbx_torch.ops import pallas_linalg as plin, qp, qp_batch, qp_fused
+    from srbx_torch.ops import spd
+    from srbx_torch.sim import closedloop
+
+    t_phase = time.perf_counter()
+    for out in (run1, team1):
+        check(out["ok"], f"the per-agent side runs failed: {out}")
+    # (1) run against run_batch("xla"), one agent
+    rec = {"phase": "per_agent", "what": "run vs run_batch xla, float64",
+           "config": "tests/test_wholebody.py:165-199 (lane 0)",
+           "ticks": list(AGENT_RUN),
+           "cut": "200 stand ticks to 100",
+           "max_abs_dq": float(np.abs(run1["run.q"]
+                                      - run1["batch.q"]).max()),
+           "max_abs_dcom": float(np.abs(run1["run.com_hist"]
+                                        - run1["batch.com_hist"]).max()),
+           "d_qp_ok": abs(run1["run.qp_ok"] - run1["batch.qp_ok"]),
+           "d_mpc_ok": abs(run1["run.mpc_ok"] - run1["batch.mpc_ok"]),
+           "qp_ok": run1["run.qp_ok"], "mpc_ok": run1["run.mpc_ok"],
+           "run_s": run1["run_s"], "batch_s": run1["batch_s"],
+           "run_ms_per_tick": run1["run_s"] * 1e3 / (
+               AGENT_RUN[0] + AGENT_RUN[1] * AGENT_RUN[2]),
+           "bound": "q and COM within 1e-8, qp_ok and mpc_ok within 1e-12",
+           "device": smi}
+    rec["ok"] = (max(rec["max_abs_dq"], rec["max_abs_dcom"]) <= 1e-8
+                 and max(rec["d_qp_ok"], rec["d_mpc_ok"]) <= 1e-12
+                 and bool(np.isfinite(run1["run.q"]).all()))
+    emit(rec)
+    check(rec["ok"], f"per-agent run vs run_batch: {rec}")
+    # (2) run_team against run_team_batch("xla"), two agents
+    rec = {"phase": "per_agent",
+           "what": "run_team vs run_team_batch xla, float64",
+           "config": "tests/test_team.py:50-100", "ticks": list(AGENT_TEAM),
+           "cut": "150 stand ticks to 100",
+           "max_abs_dcom": float(np.abs(team1["run.com_ends"]
+                                        - team1["batch.com_ends"]).max()),
+           "max_abs_dmargin": float(np.abs(team1["run.margins"]
+                                           - team1["batch.margins"]).max()),
+           "llok_batch_mean": float(team1["batch.llok"].mean()),
+           "llok_run_min": float(team1["run.llok"].min()),
+           "run_s": team1["run_s"], "batch_s": team1["batch_s"],
+           "bound": "COM within 2e-3, margins within 1e-2, llok > 0.95",
+           "device": smi}
+    rec["ok"] = (rec["max_abs_dcom"] <= 2e-3 and rec["max_abs_dmargin"]
+                 <= 1e-2 and rec["llok_batch_mean"] > 0.95
+                 and bool(np.isfinite(team1["run.com_ends"]).all()))
+    emit(rec)
+    check(rec["ok"], f"per-agent run_team vs run_team_batch: {rec}")
+
+    # (3) the paper's team, float32
+    f32 = torch.float32
+    cfg = MpcConfig(use_sqp=True, sqp_iters=2)
+    p_start = [0.0, 0.6, 0.0, -0.6]
+    traj, pobs = _agent_reference(p_start, 4_000, dev, f32)
+    pr, prd = traj.pr.reshape(2, 2, -1), traj.prd.reshape(2, 2, -1)
+    a0 = torch.tensor(p_start, dtype=f32, device=dev).reshape(2, 2)
+
+    def team(depth):
+        return closedloop.run_team(
+            cfg, w.ll_cfg, w.motion_cfg, QpConfig(), w.sim_cfg,
+            closedloop.LoopConfig(*depth), w.model, pr, prd, a0, pobs,
+            dtype=f32, device=dev)
+
+    counters = {"K1a": qp_fused.solve_lanes_last, "K1b": qp_fused.solve,
+                "K2a": spd.solve, "K2b": spd.inverse,
+                "K3a": plin.batch_cholesky, "K3b": plin.batch_cho_solve}
+    team((1, 1, 1))                                          # warm-up
+    torch.cuda.synchronize()
+    iters = []                       # (n, iterations of each lane)
+    solve = qp.solve
+
+    def recorded(*a, **k):
+        sol = solve(*a, **k)
+        iters.append((a[0].shape[-1], sol.iters))
+        return sol
+
+    ends = []
+    trot = closedloop._trot_domain
+
+    def trot_kept(*a, **k):
+        out = trot(*a, **k)
+        ends.append(out[:2])
+        return out
+
+    for k in counters.values():
+        k.launches = 0
+    stand, n_dom, per = AGENT_PAPER
+    ticks = stand + n_dom * per
+    t0 = time.perf_counter()
+    with mock.patch.object(qp, "solve", recorded), \
+            mock.patch.object(closedloop, "_trot_domain", trot_kept):
+        sims, _, margins, llok = team(AGENT_PAPER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    q = sims.q.double().cpu().numpy()
+    by_n = {}
+    for n, it in iters:
+        by_n.setdefault(n, []).extend(it.tolist())
+
+    def spread(v):
+        v = np.asarray(v, np.float64)
+        return {"qps": int(v.size), "min": int(v.min()),
+                "p50": float(np.median(v)), "mean": float(v.mean()),
+                "max": int(v.max())}
+
+    sep = float(np.linalg.norm(q[0, 0:2] - q[1, 0:2]))
+    rec = {"phase": "per_agent", "what": "run_team, the paper's "
+           "configuration, float32", "agents": 2,
+           "config": ("tests/test_team.py:15-48: MpcConfig(use_sqp=True, "
+                      "sqp_iters=2) (uncondensed, n 41 / me 28, SCP mi 116 "
+                      "with the neighbour), QpConfig(), the full LL build "
+                      "(n 43 / me 30), LU inverses, no kernel"),
+           "ticks": list(AGENT_PAPER),
+           "cut": ("800 stand ticks and 8 domains to 100 and 1; the "
+                   "reference of 4000 planner steps, not 20,000"),
+           "wall_s": wall, "ms_per_tick": wall * 1e3 / ticks,
+           "robot_ticks_per_s": 2 * ticks / wall,
+           "nmpc_qp_iters": spread(by_n.get(cfg.num_dec, [])),
+           "ll_qp_iters": spread(by_n.get(43, [])),
+           "qp_shapes": {n: len(v) for n, v in by_n.items()},
+           "ll_qp_ok": float(llok.min()), "margin_min": float(margins.min()),
+           "separation": sep, "z": q[:, 2].tolist(),
+           "roll_pitch_max": float(np.abs(q[:, 3:5]).max()),
+           "launches": launches,
+           "expected_launches": {k: 0 for k in counters},
+           "bound": ("no kernel launched; both agents finite, |z - 0.28| < "
+                     "0.03 m, roll and pitch < 0.15 rad; margins >= cbf_eps "
+                     f"- 1e-3; LL qp_ok >= {AGENT_F32_LL_OK} (float32 under "
+                     "QpConfig(): the JAX package's own share 0.860)"),
+           "device": smi}
+    rec["ok"] = (launches == rec["expected_launches"]
+                 and bool(np.isfinite(q).all())
+                 and float(np.abs(q[:, 2] - 0.28).max()) < 0.03
+                 and rec["roll_pitch_max"] < 0.15
+                 and rec["margin_min"] >= cfg.cbf_eps - 1e-3
+                 and rec["ll_qp_ok"] >= AGENT_F32_LL_OK)
+    emit(rec)
+    check(rec["ok"], f"per-agent team: {rec}")
+
+    # where a tick's time goes: trot ticks on from the run's end
+    loop5 = closedloop.LoopConfig(0, 1, AGENT_PROFILE_TICKS)
+    end_sims, end_asts = ends[-1]
+
+    def run5():
+        closedloop._trot_domain(w.ll_cfg, w.motion_cfg, QpConfig(),
+                                w.sim_cfg, loop5, w.model, end_sims,
+                                end_asts, closedloop.PER_AGENT, False)
+
+    with qp_batch.full_f32_products():
+        run5()
+        pwall, busy, by_name = device_profile(run5)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "per_agent", "what": "profile",
+          "ticks": AGENT_PROFILE_TICKS, "agents": 2,
+          "wall_ms_profiled": pwall * 1e3, "device_busy_ms": busy,
+          "idle_share": 1.0 - busy / (pwall * 1e3), "top_kernels_ms": top,
+          "device": smi})
+    emit({"phase": "per_agent", "seconds": time.perf_counter() - t_phase,
+          "side_runs_s": {"run": run1["seconds"], "team": team1["seconds"]}})
     return launches
 
 
@@ -4044,9 +4346,9 @@ def main() -> int:
                 camp["K3"][key]
     # ------------------------- 13. the team ------------------------------ #
     team = team_phase(dev, smi)
-    # the team golden and the float64 runs of phases 7 and 15-18 go on in
+    # the team golden and the float64 runs of phases 7 and 15-19 go on in
     # side processes beside phases 15 and 16, which time host-bound loops
-    # only; they end before phase 17
+    # only; phase 17 waits for every one of them
     est_w = types.SimpleNamespace(
         model=model, ll_cfg=ll_cfg, motion_cfg=motion_cfg, sim_cfg=sim_cfg,
         mpc=wb_mpc, relaxed=wb_relaxed, pr=wb_pr, prd=wb_prd, a0=wb_a0,
@@ -4055,12 +4357,15 @@ def main() -> int:
     sides = []
     try:
         sides.extend(start_side(est_w, jobs) for jobs in SIDE_GROUPS)
-        side = side_results(sides, smi)
+        side = side_results(list(sides), smi)
+        sides.append(start_side(est_w, AGENT_GROUP))
+        agent_side = side_results(sides[-1:], smi)
         # ----------------- 15. est_loop and 16. event ------------------- #
         est = estimation_phases(dev, smi, est_w, side)
         team["team_golden"] = team_golden_check(
             side("golden"), est_w.golden["planner_s"], smi)
         wholebody_cross(side("wb"), smi)
+        agent_run, agent_team = (agent_side(job) for job in AGENT_GROUP)
         # ----------------------- 17. disturbance ------------------------ #
         clf = {**side("clf32"), **side("clf"),
                "seconds": [side("clf32")["seconds"], side("clf")["seconds"]]}
@@ -4069,6 +4374,9 @@ def main() -> int:
         # ---------------------- 18. velocity_gait ----------------------- #
         est["velocity_gait"] = velocity_phase(dev, smi, est_w, side("vel"),
                                               side("vel_plain"))
+        # ------------------------- 19. per_agent ------------------------ #
+        est["per_agent"] = per_agent_phase(dev, smi, est_w, agent_run,
+                                           agent_team)
     finally:
         for proc, *_ in sides:
             if proc.is_alive():
@@ -4081,7 +4389,8 @@ def main() -> int:
         (key,) = kernel_keys[row["name"]]
         for path in ("team", "team_golden"):
             row["launches_by_path"][path] = team[path][key]
-        for path in ("est_loop", "event", "disturbance", "velocity_gait"):
+        for path in ("est_loop", "event", "disturbance", "velocity_gait",
+                     "per_agent"):
             row["launches_by_path"][path] = est[path][key]
         if key == "K1b":
             row["by_case"].update(team["k1b_cases"])
@@ -4094,6 +4403,9 @@ def main() -> int:
         if row["name"] == "qp_general_41_28":
             row["launches_by_path"]["wholebody_uncondensed"] = \
                 qp_shapes["41_28"]
+        # the per-agent path runs no kernel: its counts are K1's at any shape
+        row["launches_by_path"]["per_agent"] = est["per_agent"][
+            "K1b" if row["name"].startswith("qp_general") else "K1a"]
     kernels += new_rows
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,12 @@ loops (SIDE_JOBS) in side processes (SIDE_GROUPS) beside phases 15 and
    plan of team_golden_plan) alone, held to the golden's bounds;
 3. each side job alone, in this process.
 
-    python scripts/torch_smoke_parts.py [--device cpu]
+With `--only per_agent` it times phase 19's parts alone instead: its two
+float64 side jobs (agent_run, agent_team) in this process, then the phase
+itself (`per_agent_phase`: the float32 team at the paper's configuration,
+its profile, the checks of the side jobs' results).
+
+    python scripts/torch_smoke_parts.py [--device cpu] [--only per_agent]
 
 Prints one JSON object a part, each with the seconds since the start, and
 first the card's name and power limit. On the CPU (`--device cpu`, a
@@ -45,7 +50,9 @@ def rec(d):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    cpu = ap.parse_args().device == "cpu"
+    ap.add_argument("--only", choices=("per_agent",))
+    args = ap.parse_args()
+    cpu = args.device == "cpu"
     dev = torch.device("cpu" if cpu else "cuda")
     B = 8 if cpu else 4096
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -63,6 +70,9 @@ def main():
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip()
+    if args.only == "per_agent":
+        return per_agent(dev, smi, cpu)
+    if not cpu:
         t0 = time.perf_counter()
         _build.build()
         _build.load()
@@ -141,6 +151,30 @@ def main():
         rec({"what": "job_alone", "job": job, "s": time.perf_counter() - t0})
         if cpu:
             break
+
+
+def per_agent(dev, smi, cpu):
+    """Phase 19's side jobs alone, then the phase."""
+    from srbx_torch.config import LowLevelConfig, MotionConfig
+    from srbx_torch.models import a1
+    from srbx_torch.ops import qp_batch
+    from srbx_torch.sim import wholebody as wb
+
+    rec({"what": "per_agent", "smi": smi, "cpus": os.cpu_count()})
+    w = types.SimpleNamespace(model=a1.model(), ll_cfg=LowLevelConfig(),
+                              motion_cfg=MotionConfig(),
+                              sim_cfg=wb.SimConfig(), dev=dev)
+    out = {}
+    for job in ("agent_run", "agent_team"):
+        t0 = time.perf_counter()
+        with qp_batch.full_f32_products():
+            out[job] = cs.SIDE_JOBS[job](w)
+        out[job].update(ok=True, seconds=time.perf_counter() - t0)
+        rec({"what": "job_alone", "job": job, "s": out[job]["seconds"],
+             "run_s": out[job]["run_s"], "batch_s": out[job]["batch_s"]})
+    t0 = time.perf_counter()
+    cs.per_agent_phase(dev, smi, w, out["agent_run"], out["agent_team"])
+    rec({"what": "per_agent_phase", "s": time.perf_counter() - t0})
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from srbx_torch import lowlevel, motion
-from srbx_torch.config import Gait, LowLevelConfig, MotionConfig
+from srbx_torch.config import Gait, LowLevelConfig, MotionConfig, QpConfig
 from srbx_torch.estimation import contact
 from srbx_torch.models import a1, rbd
 from srbx_torch.ops import bezier as bz
@@ -228,3 +228,32 @@ def tick_finish(ll_cfg: LowLevelConfig, ctx: TickCtx, q, qd, sol_x,
                     delta=delta)
     return (ll_out, ctx.state_pre._replace(prev_ddq=ll_out.ddq),
             ctx.run_mpc)
+
+
+def tick(ll_cfg: LowLevelConfig, motion_cfg: MotionConfig, qp_cfg: QpConfig,
+         model: rbd.Model, gait: Gait, state: AgentState, q, qd, foot_force,
+         force_new_domain=None, force_thresh: float = 15.0, f_des=None,
+         allow_contact_trigger: bool = True):
+    """One control tick per agent lane: `tick_build`, the dense per-problem
+    IPM (`srbx_torch.ops.qp.solve`) on each lane's LL QP, `tick_finish`.
+    force_new_domain: None (no forced change), a bool for all lanes or a
+    (B,) mask. D^-1 and the swing operational-space inverse are LU
+    inverses, as the JAX package's per-lane build and finish compute them;
+    matrix products run in full float32 (no TF32).
+
+    Returns (ll_out, new_state, run_mpc)."""
+    from srbx_torch.ops import qp
+    from srbx_torch.ops.qp_batch import full_f32_products
+
+    with full_f32_products():
+        d_inv = torch.linalg.inv_ex(rbd.mass_matrix(model, q))[0]
+        data, ctx = tick_build(
+            ll_cfg, motion_cfg, model, gait, state, q, qd, foot_force,
+            force_new_domain=(False if force_new_domain is None
+                              else force_new_domain),
+            force_thresh=force_thresh, f_des=f_des,
+            allow_contact_trigger=allow_contact_trigger, d_inv=d_inv)
+        sol = qp.solve(data.P, data.c, data.A, data.b, data.G, data.h, qp_cfg)
+        delta = torch.linalg.inv_ex(lowlevel.swing_delta_inv(ctx.ll_ctx))[0]
+        return tick_finish(ll_cfg, ctx, q, qd, sol.x, sol.converged,
+                           delta=delta)

@@ -162,14 +162,14 @@ def run_campaign_chunked(
     chunks of max_chunk. dtype and device as in `run_campaign_batch`.
 
     batch_backend=None, the JAX package's per-agent vmapped path
-    (`run_campaign`), is not ported (ROADMAP M10) and raises
-    NotImplementedError.
+    (`run_campaign` over `run_scenario`), is not ported yet (ROADMAP M10's
+    rest) and raises NotImplementedError.
     """
     if batch_backend is None:
         raise NotImplementedError(
             "srbx_torch runs run_campaign_chunked through run_campaign_batch "
-            "only (pass batch_backend); the per-agent run_campaign path is "
-            "ROADMAP M10")
+            "only (pass batch_backend); the per-agent path, run_scenario and "
+            "run_campaign over mpc.run_nmpc, is ROADMAP M10's rest")
 
     def runner(k, n):
         return run_campaign_batch(cfg, qp_cfg, camp, ref_cfg, p_start, k, n,

@@ -1,9 +1,10 @@
 """1 kHz whole-body low-level controller, batched over lanes: virtual
 constraints and the QP for torques.
 
-Counterpart of `srbx/lowlevel.py` on the path of the batched closed loop:
+Counterpart of `srbx/lowlevel.py` on the paths of the closed loops:
 `virtual_constraints`, `ll_qp_build` (the full 43-variable QP), the swing
-operational-space matrix `swing_delta_inv` and `ll_qp_finish`. Static
+operational-space matrix `swing_delta_inv`, `ll_qp_finish`, and the
+per-agent `calc_torque` (build, the dense per-problem IPM, finish). Static
 padded shapes, variable contact counts by masking, exactly as there:
 
     decision x = [F (12: 3 per leg) | tau (12) | aux (18) | clf defect]  n 43
@@ -44,7 +45,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from srbx_torch.config import TOTAL_DOF, LowLevelConfig, MotionConfig
+from srbx_torch.config import (TOTAL_DOF, LowLevelConfig, MotionConfig,
+                               QpConfig)
 from srbx_torch.models import a1, rbd
 from srbx_torch.ops import bezier as bz
 
@@ -506,3 +508,26 @@ def ll_qp_finish_reduced(ll_cfg: LowLevelConfig, ctx: LLCtxR, q, qd,
     `swing_delta_inv(ctx.base)`."""
     return ll_qp_finish(ll_cfg, ctx.base, q, qd, vc,
                         expand_reduced_x(ctx, sol_x), converged, delta=delta)
+
+
+def calc_torque(ll_cfg: LowLevelConfig, qp_cfg: QpConfig, model: rbd.Model,
+                q, qd, contact_ind, vc: VcOut, f_des,
+                include_coriolis: bool = False) -> LLOut:
+    """Solve the LL QP and produce the torques (`LowLevelCtrl::calcTorque`)
+    for every lane: `ll_qp_build`, the dense per-problem IPM
+    (`srbx_torch.ops.qp.solve`), `ll_qp_finish`. f_des (B, 12): the desired
+    per-leg ground forces (zeros where no force distribution supplies them).
+    D^-1 and the swing operational-space inverse are LU inverses, as the JAX
+    package's per-lane build and finish compute them; matrix products run
+    in full float32 (no TF32)."""
+    from srbx_torch.ops import qp
+    from srbx_torch.ops.qp_batch import full_f32_products
+
+    with full_f32_products():
+        d_inv = torch.linalg.inv_ex(rbd.mass_matrix(model, q))[0]
+        data, ctx = ll_qp_build(ll_cfg, model, q, qd, contact_ind, vc, f_des,
+                                include_coriolis, d_inv=d_inv)
+        sol = qp.solve(data.P, data.c, data.A, data.b, data.G, data.h, qp_cfg)
+        delta = torch.linalg.inv_ex(swing_delta_inv(ctx))[0]
+        return ll_qp_finish(ll_cfg, ctx, q, qd, vc, sol.x, sol.converged,
+                            delta=delta)

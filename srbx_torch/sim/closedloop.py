@@ -2,8 +2,8 @@
 domains under the event-cadence NMPC, event-driven trot ticks, or the
 MPC-less velocity-commanded and in-place gaits.
 
-Counterpart of `srbx/sim/closedloop.py::run_batch`, `run_team_batch`,
-`run_batch_event` and `run_velocity_gait`.
+Counterpart of `srbx/sim/closedloop.py::run`, `run_batch`, `run_team`,
+`run_team_batch`, `run_batch_event` and `run_velocity_gait`.
 Every 1 ms tick of every lane builds the low-level QP (`agent.tick_build`:
 the full build, n 43 / me 30, or with `ll_reduced` the reduced one, n 25 /
 me 12), solves all lanes' QPs in one call of `qp_batch.solve`, finishes the
@@ -24,6 +24,14 @@ form, as in the JAX package:
 * "xla": the JAX package's per-lane form: LU inverses
   (`torch.linalg.inv_ex`), the physics by `wholebody.step_batch(backend=
   "xla")`, the step-fused IPM on torch.linalg.
+
+`run` (one agent) and `run_team` (one team) are the per-agent path, the
+JAX package's own architecture, which its batched loops are held to: every
+tick is `agent.tick` (each lane's LL QP by the dense per-problem IPM
+`ops.qp.solve`, LU inverses), the plant `wholebody.step`, and each agent's
+replan `mpc.run_nmpc` (each lane's QPs by `ops.qp.solve`). It runs no
+kernel: the JAX functions reach no Pallas kernel either. Inside they run
+the batched loops' code with `PER_AGENT` in place of a backend.
 
 `run_batch` also runs the plant with stick-slip contact (`stiction`) and
 under per-lane trunk force pulses (`push`), as the JAX package's does.
@@ -58,6 +66,8 @@ from srbx_torch.sim import wholebody as wb
 from srbx_torch.utils import prng
 
 BACKENDS = ("fused", "pallas", "xla")
+# the per-agent path of run and run_team, in place of a backend
+PER_AGENT = "per_agent"
 
 
 class LoopConfig(NamedTuple):
@@ -90,7 +100,14 @@ def _tick_batch(ll_cfg, motion_cfg, qp_cfg, model, gait, states, qs, qds,
     (K2b); on "xla" they are per-lane LU inverses, as the JAX package's
     build and finish take them there. return_d: also return the
     (B, 18, 18) mass matrices at qs, which the plant reuses for its first
-    substep (None on "xla", where the plant evaluates its own)."""
+    substep (None on "xla", where the plant evaluates its own).
+    PER_AGENT: `agent.tick`, each lane's QP by the dense IPM."""
+    if backend == PER_AGENT:
+        out = agent_mod.tick(
+            ll_cfg, motion_cfg, qp_cfg, model, gait, states, qs, qds, forces,
+            force_new_domain=force_new_domain,
+            allow_contact_trigger=allow_contact_trigger)
+        return out + (None,) if return_d else out
     if backend == "xla":
         d_b = None
         d_inv = torch.linalg.inv_ex(rbd.mass_matrix(model, qs))[0]
@@ -128,13 +145,15 @@ def _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype=None):
             if ll_reduced else qp_cfg)
 
 
-def _init_lanes(motion_cfg, loop, model, a0_l, dtype, stiction=False):
-    """Per-lane crouch start: sim state (with stiction its contact state,
-    anchored at the toes), agent state with the stand planner armed, MPC
-    carry."""
+def _init_lanes(motion_cfg, loop, model, a0_l, dtype, stiction=False,
+                q0=None):
+    """Per-lane start, the crouch at a0_l unless q0 (B, 18) is given: sim
+    state (with stiction its contact state, anchored at the toes), agent
+    state with the stand planner armed, MPC carry."""
     bsz = a0_l.shape[0]
-    q0 = wb.default_crouch(model, dtype, a0_l.device).repeat(bsz, 1)
-    q0 = torch.cat([q0[:, 0:2] + a0_l.to(dtype), q0[:, 2:]], 1)
+    if q0 is None:
+        q0 = wb.default_crouch(model, dtype, a0_l.device).repeat(bsz, 1)
+        q0 = torch.cat([q0[:, 0:2] + a0_l.to(dtype), q0[:, 2:]], 1)
     sim = wb.SimState(q0, torch.zeros_like(q0),
                       wb.init_contact_state(model, q0) if stiction else None)
     ast = agent_mod.init(motion_cfg, model, q0, dtype)
@@ -186,7 +205,10 @@ def _physics(sim_cfg, model, sims, tau, backend, d_b, est_cfg,
     """The plant's tick, under base_force (B, 3) when given. Without
     estimation the controller's D (at the true q) is the first substep's;
     with it the controller's D was evaluated at q_hat, so the plant
-    evaluates its own."""
+    evaluates its own. PER_AGENT: `wholebody.step`, as the JAX package's
+    per-agent loops call it (no d0)."""
+    if backend == PER_AGENT:
+        return wb.step(sim_cfg, model, sims, tau, base_force=base_force)
     return wb.step_batch(sim_cfg, model, sims, tau,
                          backend=_sim_backend(backend), base_force=base_force,
                          d0=d_b if est_cfg is None else None)
@@ -286,8 +308,14 @@ def _replan(mpc_cfg, qp_cfg, model, mcarries, qs, qds, asts, pr, prd, a0,
 def _nmpc(mpc_cfg, qp_cfg, model, mcarries, qs, qds, contact_ind, pr, prd,
           a0, pobs, backend, state_other=None, agent_circle_eps=0.0):
     """One batched NMPC cycle from (qs, qds) for the stance pattern
-    contact_ind."""
+    contact_ind; PER_AGENT: `mpc.run_nmpc`, each lane's QPs by the dense
+    IPM."""
     toe_xy = rbd.site_positions(model, qs)[:, a1.TOE_SITES, 0:2]
+    if backend == PER_AGENT:
+        return mpc_mod.run_nmpc(
+            mpc_cfg, qp_cfg, mcarries, qs[:, 0:2], qds[:, 0:2],
+            toe_xy.transpose(1, 2), contact_ind, pr, prd, a0, pobs,
+            state_other=state_other, agent_circle_eps=agent_circle_eps)
     return mpc_batch.run_nmpc_batch(
         mpc_cfg, qp_cfg, mcarries, qs[:, 0:2], qds[:, 0:2],
         toe_xy.transpose(1, 2), contact_ind, pr, prd, a0, pobs,
@@ -388,10 +416,11 @@ def run_batch(
 
 def _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop, model,
          pr_agent, prd_agent, agent_initial, pobs_real, dtype, backend,
-         ll_reduced, est_cfg, est_key, stiction=False, push=None):
-    """run_batch's stand phase and trot domains, on checked inputs."""
+         ll_reduced, est_cfg, est_key, stiction=False, push=None, q0=None):
+    """run_batch's and run's stand phase and trot domains, on checked
+    inputs."""
     sims, asts, mcarries = _init_lanes(motion_cfg, loop, model, agent_initial,
-                                       dtype, stiction)
+                                       dtype, stiction, q0)
     ests = (_init_ests(est_cfg, model, sims, est_key)
             if est_cfg is not None else None)
     sims, asts, ests = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg,
@@ -471,48 +500,145 @@ def run_team_batch(
     _check_options(mpc_cfg, backend)
     device, (pr, prd, agent_initials, pobs_real) = _on_device(
         device, dtype, pr, prd, agent_initials, pobs_real)
+    ll_qp_cfg = _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype)
+    with qp_batch.full_f32_products():
+        return _team(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg,
+                     loop, model, pr, prd, agent_initials, pobs_real, dtype,
+                     backend, ll_reduced, est_cfg, est_key)
+
+
+def _team(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, ll_qp_cfg, sim_cfg, loop, model,
+          pr, prd, agent_initials, pobs_real, dtype, backend, ll_reduced,
+          est_cfg, est_key):
+    """run_team_batch's and run_team's stand phase and trot domains, on
+    checked inputs."""
     n_scen, n_agents = agent_initials.shape[0:2]
     n_lanes = n_scen * n_agents
     a0_l = agent_initials.reshape(n_lanes, 2)
     pr_l = pr.reshape(n_lanes, 2, -1)
     prd_l = prd.reshape(n_lanes, 2, -1)
     pobs_l = pobs_real.repeat_interleave(n_agents, 0)
-    ll_qp_cfg = _resolve_ll_qp_cfg(qp_cfg, ll_reduced, ll_qp_cfg, dtype)
-
-    with qp_batch.full_f32_products():
-        sims, asts, mcarries = _init_lanes(motion_cfg, loop, model, a0_l,
-                                           dtype)
-        ests = (_init_ests(est_cfg, model, sims, est_key)
-                if est_cfg is not None else None)
-        sims, asts, ests = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg,
-                                        sim_cfg, loop, model, sims, asts,
-                                        backend, ll_reduced, est_cfg, ests)
-        com_ends, margins, lloks, errsq = [], [], [], []
-        for _ in range(loop.n_domains):
-            # the neighbour broadcast: each agent sees the next one's state
-            qs, qds = _state_view(est_cfg, sims, ests)
-            states4 = torch.cat([qs[:, 0:2], qds[:, 0:2]], 1)
-            others = torch.roll(states4.reshape(n_scen, n_agents, 4), -1,
-                                1).reshape(n_lanes, 4)
-            out, asts = _replan(mpc_cfg, qp_cfg, model, mcarries, qs, qds,
-                                asts, pr_l, prd_l, a0_l, pobs_l, backend,
-                                state_other=others,
-                                agent_circle_eps=mpc_cfg.cbf_eps)
-            sims, asts, ests, dom = _trot_domain(
-                ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims,
-                asts, backend, ll_reduced, est_cfg, ests)
-            mcarries = out.carry
-            com_ends.append(sims.q[:, 0:3].reshape(n_scen, n_agents, 3))
-            margins.append(out.cbf_margin.reshape(n_scen, n_agents))
-            lloks.append(dom.llok.to(dtype).mean(1).reshape(n_scen, n_agents)
-                         .mean(1))
-            errsq.append(dom.errsq)
+    sims, asts, mcarries = _init_lanes(motion_cfg, loop, model, a0_l, dtype)
+    ests = (_init_ests(est_cfg, model, sims, est_key)
+            if est_cfg is not None else None)
+    sims, asts, ests = _stand_phase(ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg,
+                                    loop, model, sims, asts, backend,
+                                    ll_reduced, est_cfg, ests)
+    com_ends, margins, lloks, errsq = [], [], [], []
+    for _ in range(loop.n_domains):
+        # the neighbour broadcast: each agent sees the next one's state
+        qs, qds = _state_view(est_cfg, sims, ests)
+        states4 = torch.cat([qs[:, 0:2], qds[:, 0:2]], 1)
+        others = torch.roll(states4.reshape(n_scen, n_agents, 4), -1,
+                            1).reshape(n_lanes, 4)
+        out, asts = _replan(mpc_cfg, qp_cfg, model, mcarries, qs, qds, asts,
+                            pr_l, prd_l, a0_l, pobs_l, backend,
+                            state_other=others,
+                            agent_circle_eps=mpc_cfg.cbf_eps)
+        sims, asts, ests, dom = _trot_domain(
+            ll_cfg, motion_cfg, ll_qp_cfg, sim_cfg, loop, model, sims, asts,
+            backend, ll_reduced, est_cfg, ests)
+        mcarries = out.carry
+        com_ends.append(sims.q[:, 0:3].reshape(n_scen, n_agents, 3))
+        margins.append(out.cbf_margin.reshape(n_scen, n_agents))
+        lloks.append(dom.llok.to(dtype).mean(1).reshape(n_scen, n_agents)
+                     .mean(1))
+        errsq.append(dom.errsq)
     res = (sims, torch.stack(com_ends), torch.stack(margins),
            torch.stack(lloks))
     if est_cfg is None:
         return res
     est_rmse = torch.sqrt(torch.stack(errsq, 1).mean(1))
     return res + (est_rmse.reshape(n_scen, n_agents, 2),)
+
+
+def _first_lane(tree):
+    """Lane 0 of every tensor of a tree of NamedTuples."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(_first_lane(t) for t in tree))
+    return tree[0]
+
+
+def run(
+    mpc_cfg: MpcConfig,
+    ll_cfg: LowLevelConfig,
+    motion_cfg: MotionConfig,
+    qp_cfg: QpConfig,
+    sim_cfg: wb.SimConfig,
+    loop: LoopConfig,
+    model: rbd.Model,
+    pr_agent,        # (2, T)
+    prd_agent,       # (2, T)
+    agent_initial,   # (2,)
+    pobs_real,       # (2, n_obs)
+    q0=None,         # optional (18,)
+    dtype=torch.float64,
+    stiction: bool = False,
+    device=None,
+) -> LoopResult:
+    """Single-agent full-fidelity run: the JAX package's `run`, plus
+    `device` (None means the CUDA card; the inputs are moved there). The
+    stand-up from q0 (the crouch at agent_initial by default), the stand
+    Bezier spanning loop.stand_ticks, then loop.n_domains trot domains,
+    each replanned by `mpc.run_nmpc` for the upcoming stance pair and
+    ticked by `agent.tick` (the domain's first tick forces its change, the
+    contact trigger is off, the MPC data arrive after
+    loop.mpc_latency_ticks) and `wholebody.step`. stiction=True runs the
+    plant with the stick-slip contact model; `sim.con.slip` (4,) is each
+    toe's cumulative slip.
+
+    Returns the JAX package's single-lane LoopResult: sim.q (18,),
+    com_hist (n_domains, ticks, 3), qp_ok and mpc_ok (), tau_hist
+    (n_domains, 2) (max |tau|, LL qp_ok share per domain)."""
+    device, (pr_agent, prd_agent, agent_initial, pobs_real) = _on_device(
+        device, dtype, pr_agent, prd_agent, agent_initial, pobs_real)
+    if q0 is not None:
+        q0 = torch.as_tensor(q0).to(device=device, dtype=dtype)[None]
+    with qp_batch.full_f32_products():
+        res = _run(mpc_cfg, ll_cfg, motion_cfg, qp_cfg, qp_cfg, sim_cfg,
+                   loop, model, pr_agent[None], prd_agent[None],
+                   agent_initial[None], pobs_real[None], dtype, PER_AGENT,
+                   False, None, None, stiction, None, q0)
+    return _first_lane(res)
+
+
+def run_team(
+    mpc_cfg: MpcConfig,
+    ll_cfg: LowLevelConfig,
+    motion_cfg: MotionConfig,
+    qp_cfg: QpConfig,
+    sim_cfg: wb.SimConfig,
+    loop: LoopConfig,
+    model: rbd.Model,
+    pr,              # (A, 2, T)
+    prd,             # (A, 2, T)
+    agent_initials,  # (A, 2)
+    pobs_real,       # (2, n_obs)
+    dtype=torch.float64,
+    device=None,
+):
+    """Multi-agent full-fidelity loop: the JAX package's `run_team`, plus
+    `device` (None means the CUDA card; the inputs are moved there). The
+    agents are lanes; at each domain boundary every agent's `mpc.run_nmpc`
+    takes the next agent's broadcast 4-state (x, y, dx, dy), a roll by -1
+    over the agents, as a CBF circle with agent_circle_eps =
+    mpc_cfg.cbf_eps; every tick is `agent.tick` and `wholebody.step` per
+    agent, without stick-slip contact.
+
+    Returns (sims (A, ...), com_ends (D, A, 3), margins (D, A), llok (D,)):
+    the agents' final sim state, each domain's last COM, each agent's CBF
+    margin of each domain's NMPC, and each domain's share of converged LL
+    QPs over its ticks and agents."""
+    device, (pr, prd, agent_initials, pobs_real) = _on_device(
+        device, dtype, pr, prd, agent_initials, pobs_real)
+    with qp_batch.full_f32_products():
+        sims, com_ends, margins, llok = _team(
+            mpc_cfg, ll_cfg, motion_cfg, qp_cfg, qp_cfg, sim_cfg, loop,
+            model, pr[None], prd[None], agent_initials[None], pobs_real[None],
+            dtype, PER_AGENT, False, None, None)
+    return sims, com_ends[:, 0], margins[:, 0], llok[:, 0]
 
 
 class EventBatchResult(NamedTuple):

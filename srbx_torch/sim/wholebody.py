@@ -1,17 +1,18 @@
 """Batched whole-body physics: the 18-DoF A1 on compliant ground.
 
-Counterpart of `srbx/sim/wholebody.py` on the paths the batched closed
-loops take (`step_batch`): the plant is the controller's own rigid-body
-model with a spring-damper normal contact at the toe sites and viscous
-tangential friction clamped to the Coulomb cone, integrated by
+Counterpart of `srbx/sim/wholebody.py`: `step`, the per-agent plant, and
+`step_batch`, the batched loops'. The plant is the controller's own
+rigid-body model with a spring-damper normal contact at the toe sites and
+viscous tangential friction clamped to the Coulomb cone, integrated by
 semi-implicit Euler in `substeps` steps per 1 ms tick. With a contact
 state (`SimState.con`, `init_contact_state`) the tangential force is the
 JAX package's stick-slip model instead: an anchor-point spring-damper per
 toe that drags its anchor when the friction cone saturates (kinetic slip,
 accumulated per toe) and re-anchors at the toe when contact breaks. A
 trunk force (`base_force`, the reference's disturbance generator) adds to
-the generalised force's first three rows. Two forms, as in the JAX
-package:
+the generalised force's first three rows. `step` solves each substep by
+the lane's own Cholesky (`rbd.forward_dynamics`) and reuses a given `d0`
+in its first substep; `step_batch` has two forms, as in the JAX package:
 
 * backend "xla": the JAX package's `vmap(step)`, each substep solving
   D qdd = rhs by LAPACK's Cholesky (`rbd.forward_dynamics`), D evaluated
@@ -129,6 +130,25 @@ def step_batch(cfg: SimConfig, model: rbd.Model, states: SimState,
         fd = rbd.forward_dynamics_batch
     else:
         raise ValueError(f"unknown backend {backend!r}")
+    return _integrate(cfg, model, states, tau_joints, fd, base_force, d0)
+
+
+def step(cfg: SimConfig, model: rbd.Model, state: SimState, tau_joints,
+         base_force=None, d0=None) -> SimState:
+    """One 1 ms tick per lane under joint torques tau_joints (B, 12): the
+    JAX package's single-plant `step`, each substep's D qdd = rhs solved by
+    the lane's own Cholesky (`rbd.forward_dynamics`). base_force: optional
+    (B, 3) world force on each trunk; state.con: the stick-slip contact
+    state, threaded through every substep; d0: optional (B, 18, 18) mass
+    matrices at state.q, used by the first substep only (the controller
+    evaluated them at the same q)."""
+    return _integrate(cfg, model, state, tau_joints, rbd.forward_dynamics,
+                      base_force, d0)
+
+
+def _integrate(cfg, model, states, tau_joints, fd, base_force, d0):
+    """cfg.substeps semi-implicit Euler steps, the forward dynamics by fd,
+    d0 (or None) the first substep's mass matrices."""
     dt = cfg.dt / cfg.substeps
     q, qd, con = states.q, states.qd, states.con
     bsz, dtype = q.shape[0], q.dtype

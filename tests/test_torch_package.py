@@ -17,14 +17,17 @@ import torch
 
 import srbx.config as jconfig
 from srbx import agent as jagent
+from srbx import lowlevel as jlowlevel
 from srbx import motion as jmotion
 from srbx import mpc as jmpc
 from srbx import mpc_batch as jmpc_batch
 from srbx import refplan as jrefplan
+from srbx import sqp as jsqp
 from srbx.config import MpcConfig, QpConfig
 from srbx.estimation import contact as jcontact
 from srbx.estimation import pipeline as jpipeline
 from srbx.eval import campaign as jcampaign
+from srbx.ops import qp as jqp
 from srbx.ops import qp_batch as jqp_batch
 from srbx.ops import qp_fused as jqp_fused
 from srbx.models import rbd as jrbd
@@ -32,12 +35,13 @@ from srbx.ops import spd as jspd
 from srbx.sim import closedloop as jclosedloop
 from srbx.sim import sensors as jsensors
 from srbx.sim import wholebody as jwb
-from srbx_torch import agent, config, convert, motion, mpc, mpc_batch, refplan
+from srbx_torch import (agent, config, convert, lowlevel, motion, mpc,
+                        mpc_batch, refplan, sqp)
 from srbx_torch.estimation import contact, pipeline
 from srbx_torch.eval import campaign
 from srbx_torch.models import a1, rbd
 from srbx_torch.ocp import default_footholds
-from srbx_torch.ops import _build, qp_batch, qp_fused, spd
+from srbx_torch.ops import _build, qp, qp_batch, qp_fused, spd
 from srbx_torch.sim import closedloop, sensors, wholebody as wb
 from srbx_torch.utils import prng
 
@@ -53,7 +57,8 @@ MODULES = sorted(
 # the port's own scripts, imported (not run) with the package
 SCRIPTS = [ROOT / "scripts" / name for name in (
     "torch_campaign_push.py", "torch_clf_loop.py", "torch_push_compare.py",
-    "torch_velocity_gait_depth.py", "torch_smoke_parts.py")]
+    "torch_velocity_gait_depth.py", "torch_smoke_parts.py",
+    "torch_per_agent_depth.py")]
 
 
 def test_import_pulls_in_no_jax():
@@ -137,12 +142,22 @@ def _default(value):
     (motion.plan_pace, jmotion.plan_pace),
     (motion.com_des_from_velocity, jmotion.com_des_from_velocity),
     (motion._ramp_vel, jmotion._ramp_vel),
+    (qp.solve, jqp.solve), (qp.solve_batch, jqp.solve_batch),
+    (sqp.solve, jsqp.solve), (sqp.solve_penalty, jsqp.solve_penalty),
+    (mpc.nmpc_qp_inputs, jmpc.nmpc_qp_inputs), (mpc.run_nmpc, jmpc.run_nmpc),
+    (mpc.eval_com_traj, jmpc.eval_com_traj),
+    (lowlevel.calc_torque, jlowlevel.calc_torque), (agent.tick, jagent.tick),
+    (wb.step, jwb.step), (closedloop.run, jclosedloop.run),
+    (closedloop.run_team, jclosedloop.run_team),
 ], ids=["run_nmpc_batch", "qp_batch_solve", "run_batch", "qp_fused_solve",
         "solve_lanes_last", "spd_solve", "spd_inverse", "run_campaign_batch",
         "run_campaign_batch_core", "run_team_batch", "step_batch",
         "run_batch_event", "pipeline_update", "sensors_read",
         "run_campaign_chunked", "run_velocity_gait", "plan_walk",
-        "plan_pace", "com_des_from_velocity", "ramp_vel"])
+        "plan_pace", "com_des_from_velocity", "ramp_vel", "qp_solve",
+        "qp_solve_batch", "sqp_solve", "solve_penalty", "nmpc_qp_inputs",
+        "run_nmpc", "eval_com_traj", "calc_torque", "tick", "step", "run",
+        "run_team"])
 def test_entry_points_keep_the_jax_defaults(mine, theirs):
     """Every parameter that a port entry point shares with its JAX
     counterpart has the same default, so that a call ported from the JAX
@@ -208,10 +223,22 @@ def test_run_team_batch_signature_differs_only_as_documented():
     (motion.pose_com, jmotion.pose_com, [], []),
     (motion.com_des_from_velocity, jmotion.com_des_from_velocity, [], []),
     (motion._ramp_vel, jmotion._ramp_vel, [], []),
+    (qp.solve, jqp.solve, [], []), (qp.solve_batch, jqp.solve_batch, [], []),
+    (sqp.solve, jsqp.solve, [], []),
+    (sqp.solve_penalty, jsqp.solve_penalty, [], []),
+    (mpc.nmpc_qp_inputs, jmpc.nmpc_qp_inputs, [], []),
+    (mpc.run_nmpc, jmpc.run_nmpc, [], []),
+    (mpc.eval_com_traj, jmpc.eval_com_traj, [], []),
+    (lowlevel.calc_torque, jlowlevel.calc_torque, [], []),
+    (agent.tick, jagent.tick, [], []), (wb.step, jwb.step, [], []),
+    (closedloop.run, jclosedloop.run, ["device"], []),
+    (closedloop.run_team, jclosedloop.run_team, ["device"], []),
 ], ids=["spd_solve", "spd_inverse", "forward_dynamics_batch", "generate",
         "step_batch", "run_velocity_gait", "plan_walk", "plan_pace",
         "plan_inplace_trot", "plan_tap", "plan_inplace_walk", "pose_com",
-        "com_des_from_velocity", "ramp_vel"])
+        "com_des_from_velocity", "ramp_vel", "qp_solve", "qp_solve_batch",
+        "sqp_solve", "solve_penalty", "nmpc_qp_inputs", "run_nmpc",
+        "eval_com_traj", "calc_torque", "tick", "step", "run", "run_team"])
 def test_dropped_parameters_are_documented(mine, theirs, ours_only,
                                            theirs_only):
     """The parameters a port entry point drops from its JAX counterpart, and
@@ -220,8 +247,9 @@ def test_dropped_parameters_are_documented(mine, theirs, ours_only,
     forward_dynamics_batch picks a TPU kernel or jax.scipy's Cholesky (the
     port runs K2a and K2b on the card). The rest keep the JAX order;
     refplan.generate and run_velocity_gait add device, refplan.generate
-    takes return_raw, step_batch base_force; the gait planners take the JAX
-    parameters as they are."""
+    takes return_raw, step_batch base_force; the gait planners and the
+    per-agent path take the JAX parameters as they are (run and run_team
+    add device)."""
     ours = list(inspect.signature(mine).parameters)
     ref = list(inspect.signature(theirs).parameters)
     assert [n for n in ref if n not in ours] == theirs_only
@@ -282,6 +310,13 @@ def test_entry_points_default_to_the_card():
              lambda: closedloop.run_velocity_gait(
                  config.Gait.WALK, *_loop_args()[1:7], np.zeros((2, 2)),
                  1).com_hist,
+             lambda: closedloop.run(
+                 *_loop_args()[:7], np.zeros((2, 10)), np.zeros((2, 10)),
+                 np.zeros(2), np.full((2, 20), 100.0)).com_hist,
+             lambda: closedloop.run_team(
+                 *_loop_args()[:7], np.zeros((2, 2, 10)),
+                 np.zeros((2, 2, 10)), np.zeros((2, 2)),
+                 np.full((2, 20), 100.0))[1],
              lambda: prng.key(0)]
     for call in calls:
         if torch.cuda.is_available():
